@@ -1,0 +1,131 @@
+"""`python -m adaptsegnet_tpu_torch.cli.evaluate <flags>` — Cityscapes val
+inference on the CUDA card (`--cpu` for the CPU).
+
+Same flags as the JAX package's CLI (reference evaluate_cityscapes.py:62-93).
+Iterates snapshots (num_steps_stop / save_pred_every) or evaluates a single
+--restore-from checkpoint, writing raw-id + palette PNGs per image under
+<save>/<mode>/step<k>/. The forward runs in f32 with the exact tail, as in
+the JAX CLI.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import os.path as osp
+
+import torch
+
+from adaptsegnet_tpu_torch.data import CityscapesDataset
+from adaptsegnet_tpu_torch.device import resolve_device
+from adaptsegnet_tpu_torch.eval.evaluator import Evaluator
+from adaptsegnet_tpu_torch.models import DeeplabMulti
+from adaptsegnet_tpu_torch.utils import pth_interop
+
+_INIT_SEED = 1338  # the JAX CLI's init key; absent checkpoint keys keep it
+
+
+def get_arguments(argv=None):
+    p = argparse.ArgumentParser(description="DeepLab-ResNet Network (CUDA eval)")
+    p.add_argument("--model", type=str, default="DeeplabMulti",
+                   help="Model Choice (DeeplabMulti/DeeplabVGG/Oracle).")
+    p.add_argument("--data-dir", type=str, default="./data/CityScapes")
+    p.add_argument("--data-list", type=str,
+                   default="./dataset/cityscapes_list/val.txt")
+    p.add_argument("--ignore-label", type=int, default=255)
+    p.add_argument("--num-classes", type=int, default=19)
+    p.add_argument("--restore-from", type=str, default="",
+                   help="Evaluate one checkpoint instead of the snapshot loop.")
+    p.add_argument("--set", type=str, default="val")
+    p.add_argument("--save", type=str, default="./result/cityscapes")
+    p.add_argument("--save-pred-every", type=int, default=5000)
+    p.add_argument("--num-steps-stop", type=int, default=150000)
+    p.add_argument("--level", type=str, default="single-level")
+    p.add_argument("--source-only", dest="source_only", action="store_true",
+                   default=True)
+    p.add_argument("--no-source-only", dest="source_only", action="store_false")
+    p.add_argument("--snapshot-dir", type=str, default="./snapshots")
+    p.add_argument("--input-size", type=str, default="1024,512",
+                   help="W,H network input (reference fwd at 512x1024).")
+    p.add_argument("--output-size", type=str, default="2048,1024",
+                   help="W,H of the upsampled prediction (reference :153).")
+    p.add_argument("--aspp-sum", type=str, default="")
+    p.add_argument("--batch-size", type=int, default=1)
+    p.add_argument("--num-devices", type=int, default=1,
+                   help="Data-parallel eval over this many devices; only 1 "
+                        "is ported so far.")
+    p.add_argument("--cpu", action="store_true",
+                   help="choose to use cpu device.")
+    return p.parse_args(argv)
+
+
+def build_model(args, device: torch.device) -> DeeplabMulti:
+    if args.model in ("Oracle", "DeeplabVGG"):
+        raise NotImplementedError(
+            f"--model {args.model} is not ported yet: see ROADMAP.md, open "
+            "item 'VGG and Synscapes' (DeeplabVGG, DeeplabSingle/Oracle)")
+    if args.model != "DeeplabMulti":
+        raise NotImplementedError(args.model)
+    if args.aspp_sum not in ("", "all"):
+        raise ValueError("DeeplabMulti sums all four ASPP branches; "
+                         f"--aspp-sum {args.aspp_sum} is not supported")
+    return DeeplabMulti(
+        num_classes=args.num_classes, device=device,
+        generator=torch.Generator().manual_seed(_INIT_SEED),
+    )
+
+
+def _mode_subdir(args) -> str:
+    if args.source_only:
+        return "source_only"
+    return {"single-level": "single_level", "multi-level": "multi_level"}[
+        args.level
+    ]
+
+
+def evaluate_checkpoint(args, model, ckpt_path, save_dir):
+    pth_interop.load_into(model, pth_interop.load_torch_state_dict(ckpt_path))
+    ow, oh = map(int, args.output_size.split(","))
+    evaluator = Evaluator(model, out_hw=(oh, ow), output_index=1,
+                          save_dir=save_dir)
+    w, h = map(int, args.input_size.split(","))
+    ds = CityscapesDataset(args.data_dir, args.data_list, crop_size=(w, h),
+                           set=args.set)
+    return evaluator.run(ds, batch_size=args.batch_size)
+
+
+def main(argv=None):
+    args = get_arguments(argv)
+    if args.num_devices != 1:
+        raise NotImplementedError(
+            "--num-devices other than 1 is not ported yet: see ROADMAP.md, "
+            "open item 'Scale-out' (torch.distributed)")
+    device = resolve_device("cpu" if args.cpu else None)
+    os.makedirs(args.save, exist_ok=True)
+    model = build_model(args, device)
+
+    if args.restore_from:
+        ckpts = [(None, args.restore_from)]
+    else:
+        ckpts = []
+        for files in range(int(args.num_steps_stop / args.save_pred_every)):
+            step = (files + 1) * args.save_pred_every
+            ckpts.append(
+                (step,
+                 osp.join(args.snapshot_dir, _mode_subdir(args),
+                          f"GTA5_{step}.pth"))
+            )
+
+    for step, path in ckpts:
+        if step is not None:
+            print("Step: ", step)
+        if not osp.exists(path):
+            print(f"missing snapshot {path}; skipping")
+            continue
+        sub = (osp.join(args.save, _mode_subdir(args), f"step{step}")
+               if step is not None else args.save)
+        evaluate_checkpoint(args, model, path, sub)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,41 @@
+"""Cityscapes eval dataset (counterpart of adaptsegnet_tpu/data/cityscapes.py).
+
+Images under <root>/leftImg8bit/<set>/<name>; `__getitem__` returns the
+reference's 3-tuple (image HWC f32 BGR mean-subtracted, size, name)
+(evaluate_cityscapes.py:158).
+"""
+
+from __future__ import annotations
+
+import os.path as osp
+
+import numpy as np
+
+from adaptsegnet_tpu_torch.data import preprocessing as pp
+
+
+class CityscapesDataset:
+    def __init__(
+        self,
+        root: str,
+        list_path: str,
+        crop_size: tuple[int, int] = (1024, 512),  # (W, H)
+        set: str = "val",
+    ):
+        self.crop_size = crop_size
+        with open(list_path) as f:
+            names = [line.strip() for line in f if line.strip()]
+        self.files = [
+            {"img": osp.join(root, "leftImg8bit", set, name), "name": name}
+            for name in names
+        ]
+
+    def __len__(self):
+        return len(self.files)
+
+    def __getitem__(self, index: int):
+        entry = self.files[index]
+        image = pp.load_image(entry["img"], self.crop_size)
+        image = pp.preprocess_image(image)
+        size = np.array(image.shape, dtype=np.int64)
+        return image, size, entry["name"]

@@ -1,0 +1,72 @@
+"""Bilinear resize with PyTorch `align_corners=True` semantics, as matmuls.
+
+Counterpart of adaptsegnet_tpu/ops/resize.py (`_interp_matrix` :30,
+`resize_bilinear_align_corners` :113, `upsample_logits` :296). 1-D
+align-corners interpolation along an axis is an (out_len, in_len) matrix
+with at most two non-zeros per row, built from f64 source coordinates and
+stored as f32; a separable 2-D resize is two matmuls, H first, then W.
+`F.interpolate` is not used on the parity path: its f32 coordinate
+arithmetic is not this matrix's, and the eval masks are held to it.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+
+@functools.lru_cache(maxsize=64)
+def _interp_matrix(in_len: int, out_len: int) -> np.ndarray:
+    """Dense (out_len, in_len) align_corners=True interpolation matrix.
+
+    Row `o` holds the weights of output pixel `o`: src = o * (in_len - 1) /
+    (out_len - 1); taps floor(src) and min(floor(src) + 1, in_len - 1) with
+    weights (1 - frac, frac). Callers must not write to the result (cached).
+    """
+    m = np.zeros((out_len, in_len), dtype=np.float64)
+    if out_len == 1:
+        m[0, 0] = 1.0
+        return m.astype(np.float32)
+    if in_len == 1:
+        m[:, 0] = 1.0
+        return m.astype(np.float32)
+    scale = (in_len - 1) / (out_len - 1)
+    src = np.arange(out_len, dtype=np.float64) * scale
+    lo = np.clip(np.floor(src).astype(np.int64), 0, in_len - 1)
+    hi = np.minimum(lo + 1, in_len - 1)
+    frac = src - lo
+    rows = np.arange(out_len)
+    np.add.at(m, (rows, lo), 1.0 - frac)
+    np.add.at(m, (rows, hi), frac)
+    return m.astype(np.float32)
+
+
+def resize_bilinear_align_corners(
+    x: torch.Tensor, out_hw: tuple[int, int], exact: bool = True
+) -> torch.Tensor:
+    """Resize NHWC `x` to `out_hw` with align_corners=True bilinear.
+
+    exact=True: both matmuls in f32 (TF32 off on the parity path, see
+    ops/precision.py), result cast back to x.dtype. exact=False: stay in
+    x.dtype (the throughput path).
+    """
+    n, h, w, c = x.shape
+    oh, ow = out_hw
+    if (h, w) == (oh, ow):
+        return x
+    ctype = torch.float32 if exact else x.dtype
+    mh = torch.from_numpy(_interp_matrix(h, oh)).to(x.device, ctype)
+    mw = torch.from_numpy(_interp_matrix(w, ow)).to(x.device, ctype)
+    y = torch.einsum("oh,nhwc->nowc", mh, x.to(ctype))
+    y = torch.einsum("pw,nhwc->nhpc", mw, y)
+    return y.to(x.dtype)
+
+
+def upsample_logits(
+    logits: torch.Tensor, out_hw: tuple[int, int], exact: bool = True
+) -> torch.Tensor:
+    """Upsample segmentation logits (N, h, w, C) to (N, H, W, C): the
+    reference's `interp` module (evaluate_cityscapes.py:153)."""
+    return resize_bilinear_align_corners(logits, out_hw, exact=exact)

@@ -1,0 +1,117 @@
+"""torch `.pth` state dicts <-> the port's modules, and flax trees -> the port.
+
+The port's modules use the reference's torch state-dict keys
+(`conv1.weight`, `layer3.5.conv2.weight`, `layer1.0.downsample.1.running_var`,
+`layer5.conv2d_list.0.weight`, ...), so a released checkpoint or a snapshot
+loads with `load_state_dict`. Two pieces of key surgery are kept from the
+JAX package's interop (adaptsegnet_tpu/utils/pth_interop.py): the
+DataParallel `module.` and caffe `Scale.` prefixes are stripped, and
+`num_batches_tracked` buffers are dropped.
+
+`from_jax_variables` carries a flax `{'params', 'batch_stats'}` tree of
+numpy arrays across to the port's keys (HWIO -> OIHW, BN
+`scale`/`mean`/`var` -> `weight`/`running_mean`/`running_var`): the parity
+tests load identical weights into both packages with it.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+_BLOCK_RE = re.compile(r"^layer([1-4])_block(\d+)$")
+_BN_LEAVES = {
+    "scale": "weight",
+    "bias": "bias",
+    "mean": "running_mean",
+    "var": "running_var",
+}
+
+
+def strip_prefix(key: str) -> str:
+    """Strip 'module.' (DataParallel) and 'Scale.' (caffe-converted init)
+    prefixes."""
+    for p in ("module.", "Scale."):
+        if key.startswith(p):
+            key = key[len(p):]
+    return key
+
+
+def load_torch_state_dict(path: str) -> dict[str, torch.Tensor]:
+    """Read a `.pth` file into CPU tensors under the port's keys."""
+    raw = torch.load(path, map_location="cpu", weights_only=True)
+    if hasattr(raw, "state_dict"):
+        raw = raw.state_dict()
+    return {
+        strip_prefix(k): torch.as_tensor(v)
+        for k, v in raw.items()
+        if not k.endswith("num_batches_tracked")
+    }
+
+
+def save_torch_state_dict(sd: Mapping[str, torch.Tensor], path: str) -> None:
+    torch.save({k: v.detach().cpu() for k, v in sd.items()}, path)
+
+
+def load_into(model: nn.Module, sd: Mapping[str, torch.Tensor]) -> list[str]:
+    """Load `sd` over `model`'s freshly initialised weights.
+
+    Keys absent from `sd` keep their initial values (the reference's
+    filtered load, evaluate_cityscapes.py:137-141); a key the model does
+    not have, or a shape that differs, raises. Returns the missing keys.
+    """
+    result = model.load_state_dict(dict(sd), strict=False)
+    if result.unexpected_keys:
+        raise KeyError(
+            f"checkpoint keys not present in the model: "
+            f"{sorted(result.unexpected_keys)[:8]}"
+        )
+    return list(result.missing_keys)
+
+
+def _torch_key(path: tuple[str, ...]) -> str:
+    """Flax path (without collection) -> the port's state-dict key."""
+    if path[0] == "backbone":
+        path = path[1:]
+    head = path[0]
+    if head in ("layer5", "layer6"):
+        _, branch, _, leaf = path
+        idx = int(branch.removeprefix("branch"))
+        return f"{head}.conv2d_list.{idx}.{'weight' if leaf == 'kernel' else 'bias'}"
+    if head in ("conv1", "bn1"):
+        prefix, (mod, leaf) = head, path[1:]
+    else:
+        m = _BLOCK_RE.match(head)
+        if m is None:
+            raise KeyError(f"unrecognized flax path: {'/'.join(path)}")
+        name = {"downsample_conv": "downsample.0",
+                "downsample_bn": "downsample.1"}.get(path[1], path[1])
+        prefix = f"layer{m.group(1)}.{int(m.group(2))}.{name}"
+        mod, leaf = path[2:]
+    if mod == "conv":
+        return f"{prefix}.weight"
+    return f"{prefix}.{_BN_LEAVES[leaf]}"
+
+
+def _leaves(tree: Mapping[str, Any], path=()):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _leaves(v, path + (k,))
+        else:
+            yield path + (k,), v
+
+
+def from_jax_variables(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """Flax DeeplabMulti / ResNetBackbone variables -> port state dict."""
+    sd: dict[str, torch.Tensor] = {}
+    for coll in ("params", "batch_stats"):
+        for path, value in _leaves(variables.get(coll, {})):
+            arr = np.array(value, dtype=np.float32)  # a writable copy
+            if path[-1] == "kernel":
+                arr = np.transpose(arr, (3, 2, 0, 1))  # HWIO -> OIHW
+            sd[_torch_key(path)] = torch.from_numpy(np.ascontiguousarray(arr))
+    return sd

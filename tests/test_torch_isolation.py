@@ -1,0 +1,88 @@
+"""The port stands alone: no JAX, nothing of adaptsegnet_tpu, and no silent
+CPU fallback at its entry points."""
+
+import ast
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import adaptsegnet_tpu_torch
+from adaptsegnet_tpu_torch.cli import evaluate as cli_evaluate
+from adaptsegnet_tpu_torch.models import DeeplabMulti, ResNetBackbone
+
+PKG_DIR = pathlib.Path(adaptsegnet_tpu_torch.__file__).parent
+REPO = PKG_DIR.parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "adaptsegnet_tpu")
+
+
+def _module_names():
+    for path in sorted(PKG_DIR.rglob("*.py")):
+        rel = path.relative_to(REPO).with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        yield ".".join(parts)
+
+
+def test_every_module_imports_without_jax():
+    code = "\n".join([
+        "import importlib, sys",
+        *[f"sys.modules[{name!r}] = None" for name in FORBIDDEN],
+        f"for name in {list(_module_names())!r}:",
+        "    importlib.import_module(name)",
+        "leaked = [m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r} and sys.modules[m] is not None]",
+        "assert not leaked, leaked",
+        "print('imported', len([m for m in sys.modules "
+        "if m.startswith('adaptsegnet_tpu_torch')]))",
+    ])
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "imported" in proc.stdout
+
+
+@pytest.mark.parametrize("path", sorted(PKG_DIR.rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(PKG_DIR)))
+def test_no_forbidden_import_in_source(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in FORBIDDEN, (path, name)
+
+
+def test_entry_points_need_cuda_unless_cpu(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DeeplabMulti()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ResNetBackbone(layers=(1, 1, 1, 1))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DeeplabMulti(device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli_evaluate.main(["--restore-from", "unused.pth",
+                           "--save", str(tmp_path / "out")])
+    assert next(ResNetBackbone(layers=(1, 1, 1, 1), device="cpu")
+                .parameters()).device.type == "cpu"
+
+
+def test_chip_smoke_fails_without_card_or_repo(tmp_path):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    alone = tmp_path / "alone"
+    alone.mkdir()
+    shutil.copy(REPO / "chip_smoke.py", alone / "chip_smoke.py")
+    for cwd in (REPO, alone):
+        proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                              env=env, capture_output=True, text=True,
+                              timeout=300)
+        assert proc.returncode != 0, proc.stdout
+        assert '"ok": true' not in proc.stdout
