@@ -1,0 +1,25 @@
+"""`python -m adaptsegnet_tpu_torch.cli.train <flags>` — training on the CUDA
+card (`--cpu` for the CPU).
+
+The JAX package's flag surface (reference train_gta2cityscapes_multi.py:
+72-156) with the mode constants as real flags (--source-only /
+--no-source-only, --level). Ported modes: source-only and single-level
+without the Warper (--no-warper), and multi-level.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from adaptsegnet_tpu_torch.train.config import parse_args
+from adaptsegnet_tpu_torch.train.loop import train
+
+
+def main(argv=None):
+    cfg = parse_args(argv)
+    np.random.seed(cfg.random_seed)
+    return train(cfg)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,50 @@
+// Dilated 3x3 stride-1 convolution (padding = dilation), NHWC bf16, f32
+// accumulation, bf16 out: the backbone's layer3 (d=2, C=256) and layer4 (d=4,
+// C=512) 3x3 convs on the train path, forward and dgrad.
+//
+// Replaces the TPU kernel adaptsegnet_tpu/ops/pallas/conv3x3_dil.py
+// (`conv3x3_dil_mxu`, Pallas `_kernel`): nine (R*W, C) @ (C, C) tap matmuls
+// per R-row VMEM block with the shifts sliced in VMEM. On the card it is an
+// implicit GEMM (csrc/igemm_bf16.cuh): M = N*H*W pixels, N = Cout, K = 9*Cin,
+// the shifted source pixel loaded per tap with zero padding on load, so no
+// padded or shifted copy of the input ever reaches device memory.
+//
+// Bound on the H100: layer3 is 9.66 GFLOP against ~9.6 MB of traffic per
+// call (~1,000 FLOP/byte), layer4 38.7 GFLOP: both are bound by the tensor
+// cores (989 TFLOP/s bf16 dense), so the design keeps the products on them
+// (wmma bf16 16x16x16, f32 accumulators) and hides the gathers behind a
+// three-stage cp.async pipeline.
+//
+// dgrad is the same call with the spatially flipped, in/out-swapped weights
+// (the wrapper builds them): for stride 1 and padding == dilation the
+// transpose of the conv is that conv.
+
+#include "igemm_bf16.cuh"
+
+// x: (n, h, w, cin) bf16; wmat: (9 * cin, cout) bf16, row (ky*3 + kx)*cin + ci;
+// out: (n, h, w, cout) bf16. cin % 32 == 0, cout % 8 == 0.
+extern "C" int asn_conv3x3_dil(const void* x, const void* wmat, void* out,
+                               int n, int h, int w, int cin, int cout, int d,
+                               void* stream) {
+  igemm::Geo g;
+  g.n = n;
+  g.oh = h;
+  g.ow = w;
+  g.sh = h;
+  g.sw = w;
+  g.cs = cin;
+  g.kw = 3;
+  g.taps = 9;
+  g.rs = 1;
+  g.ry = 0;
+  g.rx = 0;
+  g.tmul = d;
+  g.tadd = -d;
+  g.os = 1;
+  g.oh_out = h;
+  g.ow_out = w;
+  g.ncols = cout;
+  g.zpar = 0;
+  return igemm::launch(x, wmat, nullptr, out, g,
+                       static_cast<cudaStream_t>(stream));
+}

@@ -1,4 +1,4 @@
-"""Devkit list files and synthetic Cityscapes fixtures for the eval slice
+"""Devkit list files and synthetic GTA5 / Cityscapes fixtures
 (counterpart of adaptsegnet_tpu/data/lists.py; the fixtures make the same
 files from the same seeds).
 """
@@ -39,6 +39,27 @@ def write_devkit(devkit_dir: str, val_names: list[str], label_names: list[str]):
     }
     with open(osp.join(devkit_dir, "info.json"), "w") as f:
         json.dump(info, f)
+
+
+def make_synthetic_gta5(root: str, n: int = 4, size_wh=(64, 32), seed=0) -> str:
+    """Write a tiny GTA5-layout dataset (images/, labels/ of raw ids);
+    returns the list file path."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(osp.join(root, "images"), exist_ok=True)
+    os.makedirs(osp.join(root, "labels"), exist_ok=True)
+    names = []
+    raw_ids = np.array(sorted(GTA5_ID_TO_TRAINID) + [0, 1, 4])
+    for i in range(n):
+        name = f"{i:05d}.png"
+        img = rng.integers(0, 256, size=(size_wh[1], size_wh[0], 3), dtype=np.uint8)
+        lab = raw_ids[rng.integers(0, len(raw_ids), size=(size_wh[1], size_wh[0]))]
+        Image.fromarray(img).save(osp.join(root, "images", name))
+        Image.fromarray(lab.astype(np.uint8)).save(osp.join(root, "labels", name))
+        names.append(name)
+    list_path = osp.join(root, "train.txt")
+    with open(list_path, "w") as f:
+        f.write("\n".join(names) + "\n")
+    return list_path
 
 
 def make_synthetic_cityscapes(

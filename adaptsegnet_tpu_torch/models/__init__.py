@@ -1,4 +1,5 @@
-"""Models of the port: the multi-level DeepLab-v2 segmenter."""
+"""Models of the port: the multi-level DeepLab-v2 segmenter and the
+fully-convolutional discriminator."""
 
 from adaptsegnet_tpu_torch.models.deeplab_resnet import (
     Bottleneck,
@@ -6,5 +7,7 @@ from adaptsegnet_tpu_torch.models.deeplab_resnet import (
     DeeplabMulti,
     ResNetBackbone,
 )
+from adaptsegnet_tpu_torch.models.discriminator import FCDiscriminator
 
-__all__ = ["Bottleneck", "ClassifierModule", "DeeplabMulti", "ResNetBackbone"]
+__all__ = ["Bottleneck", "ClassifierModule", "DeeplabMulti", "FCDiscriminator",
+           "ResNetBackbone"]

@@ -1,15 +1,37 @@
 """Hand-written CUDA kernels of the port and their launch counts.
 
-Each kernel's wrapper carries a `launches` integer that grows by one per
-launch; `KERNELS` lists the wrappers so a run can zero and read the counts.
+Each kernel direction's wrapper carries a `launches` integer that grows by
+one per launch; `KERNELS` lists the wrappers so a run can zero and read the
+counts. `LIBRARIES` names the CUDA sources (csrc/<name>.cu), one shared
+library each.
 """
 
+from adaptsegnet_tpu_torch.ops.kernels.conv3x3_dil import (
+    conv3x3_dil_dgrad,
+    conv3x3_dil_fwd,
+)
+from adaptsegnet_tpu_torch.ops.kernels.conv4x4_patch import (
+    conv4x4_patch_dgrad,
+    conv4x4_patch_fwd,
+    conv4x4_patch_wgrad,
+)
+from adaptsegnet_tpu_torch.ops.kernels.conv4x4_s2 import (
+    conv4x4_s2_dgrad,
+    conv4x4_s2_fwd,
+    conv4x4_s2_wgrad,
+)
 from adaptsegnet_tpu_torch.ops.kernels.upsample_argmax import (
     upsample_argmax,
     upsample_argmax_plain,
 )
 
-KERNELS = {"upsample_argmax": upsample_argmax}
+KERNELS = {fn.__name__: fn for fn in (
+    upsample_argmax,
+    conv3x3_dil_fwd, conv3x3_dil_dgrad,
+    conv4x4_s2_fwd, conv4x4_s2_dgrad, conv4x4_s2_wgrad,
+    conv4x4_patch_fwd, conv4x4_patch_dgrad, conv4x4_patch_wgrad,
+)}
+LIBRARIES = ("upsample_argmax", "conv3x3_dil", "conv4x4_s2", "conv4x4_patch")
 
 
 def reset_launch_counts() -> None:
@@ -23,6 +45,15 @@ def launch_counts() -> dict[str, int]:
 
 __all__ = [
     "KERNELS",
+    "LIBRARIES",
+    "conv3x3_dil_dgrad",
+    "conv3x3_dil_fwd",
+    "conv4x4_patch_dgrad",
+    "conv4x4_patch_fwd",
+    "conv4x4_patch_wgrad",
+    "conv4x4_s2_dgrad",
+    "conv4x4_s2_fwd",
+    "conv4x4_s2_wgrad",
     "launch_counts",
     "reset_launch_counts",
     "upsample_argmax",

@@ -1,8 +1,8 @@
 """Build the port's CUDA sources with nvcc and load them with ctypes.
 
 Each `csrc/<name>.cu` exposes a plain C interface and compiles alone into
-`_build/lib<name>-<hash>.so` (the hash covers the source and the flags, so
-an edited source is rebuilt). Nothing is built when a module is imported:
+`_build/lib<name>-<hash>.so` (the hash covers the source, the shared
+`csrc/*.cuh` headers and the flags, so an edited source is rebuilt). Nothing is built when a module is imported:
 the first call that launches a kernel builds its library, and `build()`
 compiles several at once, one nvcc per source, all started together.
 """
@@ -16,6 +16,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -39,6 +41,8 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # shared by several sources
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
@@ -81,3 +85,38 @@ def load(name: str) -> ctypes.CDLL:
         build([name])
     return ctypes.CDLL(str(path))
 
+
+def on_cuda(t: torch.Tensor, what: str) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU tensor
+    (take the plain version); raises for any other device: no fallback."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"no {what} kernel for device {t.device}")
+    return True
+
+
+def check_operands(what: str, device: torch.device, **tensors) -> None:
+    """Every operand of a launch lies on `device`, is bf16 and contiguous:
+    the kernels read raw pointers with those layouts."""
+    for name, t in tensors.items():
+        if t.device != device:
+            raise ValueError(f"{what}: {name} on {t.device}, expected {device}")
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"{what}: {name} must be bf16, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous, got shape "
+                             f"{tuple(t.shape)} strides {t.stride()}")
+
+
+def stream(t: torch.Tensor) -> int:
+    """The current CUDA stream of t's device, as the kernels' last argument.
+    Operands are allocated and freed on this stream too, so the caching
+    allocator reuses their memory only after the launch has run."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def raise_on(err: int, what: str) -> None:
+    """Raise if a launch returned a cudaError_t other than cudaSuccess."""
+    if err:
+        raise RuntimeError(f"{what} kernel launch failed: cudaError_t {err}")

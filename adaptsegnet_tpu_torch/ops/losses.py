@@ -1,0 +1,52 @@
+"""Segmentation and adversarial objectives.
+
+Counterpart of adaptsegnet_tpu/ops/losses.py (`cross_entropy_2d` :21,
+`bce_with_logits` :77, `ls_gan_mse` :88, `gan_loss` :98). NHWC logits, f32
+scalar means:
+  * seg loss: torch.nn.CrossEntropyLoss(ignore_index=255) over valid pixels,
+    except that a batch with every pixel ignored gives 0 (torch gives NaN),
+    as the JAX package does;
+  * GAN loss by --gan: 'Vanilla' -> BCE with logits, 'LS' -> MSE on the raw
+    discriminator scores; labels source 0, target 1.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def cross_entropy_2d(logits: torch.Tensor, labels: torch.Tensor,
+                     ignore_label: int = 255) -> torch.Tensor:
+    """logits (N, H, W, C), labels (N, H, W) int -> mean NLL over the
+    pixels whose label is not `ignore_label` (0 when there are none)."""
+    logits = logits.float()
+    labels = labels.long()
+    valid = labels != ignore_label
+    safe = torch.where(valid, labels, torch.zeros_like(labels))
+    logz = torch.logsumexp(logits, dim=-1)
+    picked = logits.gather(-1, safe.unsqueeze(-1)).squeeze(-1)
+    nll = (logz - picked) * valid.float()
+    count = valid.sum().float().clamp(min=1.0)
+    return nll.sum() / count
+
+
+def bce_with_logits(logits: torch.Tensor, target: float) -> torch.Tensor:
+    """Mean binary cross-entropy on raw logits (torch BCEWithLogitsLoss)."""
+    x = logits.float()
+    return F.binary_cross_entropy_with_logits(x, torch.full_like(x, target))
+
+
+def ls_gan_mse(logits: torch.Tensor, target: float) -> torch.Tensor:
+    """Mean squared error on raw scores (torch MSELoss): --gan LS."""
+    x = logits.float()
+    return torch.mean(torch.square(x - target))
+
+
+def gan_loss(mode: str):
+    """The adversarial criterion for --gan 'Vanilla' | 'LS'."""
+    if mode == "Vanilla":
+        return bce_with_logits
+    if mode == "LS":
+        return ls_gan_mse
+    raise NotImplementedError(f"gan mode {mode!r} is not implemented")

@@ -11,7 +11,26 @@ The switches are process-wide; bf16 is unaffected by them.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
+
+
+@contextlib.contextmanager
+def tf32_for(dtype: torch.dtype):
+    """Let cuDNN use TF32 inside the block when `dtype` is a low-precision
+    type whose values are being convolved as f32 upcasts: bf16 and f16
+    values (and their products) are exact in TF32's 10 mantissa bits, so
+    TF32 tensor cores change nothing there. f32 leaves the switch alone."""
+    if dtype == torch.float32:
+        yield
+        return
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
 
 
 def configure(dtype: torch.dtype) -> None:

@@ -68,5 +68,30 @@ def upsample_logits(
     logits: torch.Tensor, out_hw: tuple[int, int], exact: bool = True
 ) -> torch.Tensor:
     """Upsample segmentation logits (N, h, w, C) to (N, H, W, C): the
-    reference's `interp` module (evaluate_cityscapes.py:153)."""
+    reference's `interp` module (evaluate_cityscapes.py:153). Training runs
+    bf16 models with exact=False, in the compute dtype
+    (adaptsegnet_tpu/train/steps.py:99-110)."""
     return resize_bilinear_align_corners(logits, out_hw, exact=exact)
+
+
+def upsample_softmax_planar(
+    logits: torch.Tensor, out_hw: tuple[int, int]
+) -> torch.Tensor:
+    """The discriminator input: softmax over classes of the align-corners
+    upsample of raw (N, h, w, C) logits, as a planar (N, C, H, W) map.
+
+    Counterpart of adaptsegnet_tpu/ops/resize.py::upsample_softmax_s2d_planar
+    (`:255-293`), which emits the four stride-2 parity phases of the padded
+    map for the TPU kernel; the port's conv1 kernel reads the dense map and
+    pads on load (ops/kernels/conv4x4_patch.py), so the values here are the
+    same map without the phase split and the zero pad. The resize runs in
+    the logits' dtype with f32 matrices for f32 (exact) and in-dtype for
+    bf16, as the JAX producer does."""
+    oh, ow = out_hw
+    n, h, w, c = logits.shape
+    x = logits.permute(0, 3, 1, 2)  # tiny low-res tensor
+    mh = torch.from_numpy(_interp_matrix(h, oh)).to(x.device, x.dtype)
+    mw = torch.from_numpy(_interp_matrix(w, ow)).to(x.device, x.dtype)
+    y = torch.einsum("oh,nchw->ncow", mh, x)
+    y = torch.einsum("pw,ncow->ncop", mw, y)
+    return torch.softmax(y, dim=1)

@@ -1,0 +1,81 @@
+"""Construct the models and the train state from a TrainConfig.
+
+Counterpart of adaptsegnet_tpu/train/build.py (`build_train_state`
+:134-210): DeeplabMulti in the compute dtype, the reference's restore-from
+surgery (reference train_gta2cityscapes_multi.py:202-215: `Scale.` /
+`module.` prefixes stripped, layer5 skipped when num_classes == 19, both
+heads with --not-restore-last), D1/D2 for the adversarial modes, and their
+optimizers. Weights are drawn from torch generators seeded with
+--random-seed (G) and --random-seed + 1 / + 2 (D1 / D2).
+"""
+
+from __future__ import annotations
+
+import os.path as osp
+import sys
+
+import torch
+
+from adaptsegnet_tpu_torch.models import DeeplabMulti, FCDiscriminator
+from adaptsegnet_tpu_torch.train.config import TrainConfig, check_supported
+from adaptsegnet_tpu_torch.train.optim import (
+    make_discriminator_optimizer,
+    make_generator_optimizer,
+)
+from adaptsegnet_tpu_torch.train.state import Schedule, TrainState
+from adaptsegnet_tpu_torch.utils import pth_interop
+
+
+def _dtype_of(cfg: TrainConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+
+
+def restore_generator(cfg: TrainConfig, model: DeeplabMulti) -> bool:
+    """Load --restore-from over the fresh weights; False when it is ''."""
+    if not cfg.restore_from:
+        return False
+    if not osp.exists(cfg.restore_from):
+        raise FileNotFoundError(
+            "--restore-from checkpoint not found: "
+            f"{osp.abspath(cfg.restore_from)!r} (pass --restore-from '' to "
+            "train from random init)")
+    sd = pth_interop.load_torch_state_dict(cfg.restore_from)
+    skip = set()
+    if cfg.num_classes == 19:
+        skip.add("layer5")
+    if cfg.not_restore_last:
+        skip.update(("layer5", "layer6"))
+    sd = {k: v for k, v in sd.items() if k.split(".")[0] not in skip}
+    pth_interop.load_into(model, sd)
+    print(f"restored {len(sd)}/{len(model.state_dict())} tensors from "
+          f"{cfg.restore_from}", file=sys.stderr)
+    return True
+
+
+def build_train_state(cfg: TrainConfig, device: torch.device) -> TrainState:
+    check_supported(cfg)
+    dtype = _dtype_of(cfg)
+    seed = cfg.random_seed
+    model = DeeplabMulti(num_classes=cfg.num_classes, dtype=dtype,
+                         device="cpu",
+                         generator=torch.Generator().manual_seed(seed))
+    restore_generator(cfg, model)
+    model.to(device)
+    state = TrainState(
+        model=model,
+        g_opt=make_generator_optimizer(model, cfg.learning_rate, cfg.momentum,
+                                       cfg.weight_decay),
+        schedule=Schedule(cfg.learning_rate, cfg.learning_rate_D,
+                          cfg.num_steps, cfg.power),
+    )
+    if not cfg.source_only:
+        def disc(offset):
+            d = FCDiscriminator(
+                num_classes=cfg.num_classes, dtype=dtype, device=device,
+                generator=torch.Generator().manual_seed(seed + offset))
+            return d, make_discriminator_optimizer(d, cfg.learning_rate_D)
+
+        state.d2, state.d2_opt = disc(2)
+        if cfg.level == "multi-level":
+            state.d1, state.d1_opt = disc(1)
+    return state

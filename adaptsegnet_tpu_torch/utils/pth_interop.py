@@ -10,8 +10,10 @@ DataParallel `module.` and caffe `Scale.` prefixes are stripped, and
 
 `from_jax_variables` carries a flax `{'params', 'batch_stats'}` tree of
 numpy arrays across to the port's keys (HWIO -> OIHW, BN
-`scale`/`mean`/`var` -> `weight`/`running_mean`/`running_var`): the parity
-tests load identical weights into both packages with it.
+`scale`/`mean`/`var` -> `weight`/`running_mean`/`running_var`), for
+DeeplabMulti / ResNetBackbone trees and for FCDiscriminator trees
+(`conv1`..`conv4`, `classifier`): the parity tests load identical weights
+into both packages with it.
 """
 
 from __future__ import annotations
@@ -73,11 +75,16 @@ def load_into(model: nn.Module, sd: Mapping[str, torch.Tensor]) -> list[str]:
     return list(result.missing_keys)
 
 
+_DISC_CONVS = {"conv1", "conv2", "conv3", "conv4", "classifier"}
+
+
 def _torch_key(path: tuple[str, ...]) -> str:
     """Flax path (without collection) -> the port's state-dict key."""
     if path[0] == "backbone":
         path = path[1:]
     head = path[0]
+    if head in _DISC_CONVS and path[1] == "conv" and len(path) == 3:
+        return f"{head}.{'weight' if path[2] == 'kernel' else 'bias'}"
     if head in ("layer5", "layer6"):
         _, branch, _, leaf = path
         idx = int(branch.removeprefix("branch"))
@@ -106,7 +113,8 @@ def _leaves(tree: Mapping[str, Any], path=()):
 
 
 def from_jax_variables(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
-    """Flax DeeplabMulti / ResNetBackbone variables -> port state dict."""
+    """Flax DeeplabMulti / ResNetBackbone / FCDiscriminator variables ->
+    port state dict."""
     sd: dict[str, torch.Tensor] = {}
     for coll in ("params", "batch_stats"):
         for path, value in _leaves(variables.get(coll, {})):

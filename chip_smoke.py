@@ -1,15 +1,19 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one CUDA card and check it.
+"""Drive the PyTorch/CUDA port's main paths on one CUDA card and check them.
 
-    python3 chip_smoke.py        # from the repository root; needs one card
+    python3 chip_smoke.py                 # from the repository root; one card
+    python3 chip_smoke.py --kernels-only  # phases 1-3 and 8 only: build the
+                                          # kernels and hold each against its
+                                          # plain version (no contract lines)
 
-The port's main path is DeeplabMulti evaluation: ResNet-101 forward at
+The port's main paths are DeeplabMulti evaluation (ResNet-101 forward at
 512x1024 -> align-corners upsample to 1024x2048 -> first-index argmax ->
-uint8 masks -> PNGs -> mIoU. Phases, each printing one line (any failure
-exits nonzero, and there is no CPU fallback):
+uint8 masks -> PNGs -> mIoU) and the bf16 multi-level adversarial train
+step (DeeplabMulti + D1/D2 at 512x1024, bs 1). Phases, each printing one
+line or more (any failure exits nonzero, and there is no CPU fallback):
   1. device, torch and CUDA versions, nvidia-smi name and power limit;
-  2. build the CUDA kernels from adaptsegnet_tpu_torch/csrc (one nvcc each,
-     started together);
+  2. build the four CUDA libraries from adaptsegnet_tpu_torch/csrc (one
+     nvcc each, started together);
   3. hold each kernel against its plain PyTorch version on the card;
   4. full-width bf16 eval through make_eval_fn (the kernel's main path):
      launch counts zeroed before, read after; kernel tail vs plain tail;
@@ -20,7 +24,20 @@ exits nonzero, and there is no CPU fallback):
      the eval (device-busy share, launches, top kernels), and the
      Evaluator's steady end-to-end rate with host decode and PNG writes
      (two runs of 20 and 120 images differenced, so the pipeline's fill
-     and drain are timed apart).
+     and drain are timed apart);
+  8. every direction of the train kernels (2: conv3x3_dil fwd/dgrad at
+     layer3 and layer4; 5: conv4x4_s2 fwd/dgrad/wgrad at D conv2..4; 4:
+     conv4x4_patch fwd/dgrad/wgrad at D conv1) against its plain version at
+     the train shapes, with its time, the plain version's, the library
+     call's and its bound;
+  9. the bf16 multi-level train step at 512x1024 (the train slice's main
+     path): launch counts zeroed before 10 timed steps and read after,
+     checked against the per-step counts; finite losses, loss_seg2 ~ ln 19
+     at step 0, parameters moved; ms/step by CUDA events, peak memory, and
+     a profiler window (device-busy share, launches/step);
+ 10. one multi-level step card vs CPU from the same weights, bf16 and f32;
+ 11. the CLI: cli.train (bf16 multi-level, 3 steps, synthetic data) writes
+     GTA5_3.pth + _D1/_D2, then cli.evaluate loads GTA5_3.pth.
 Then a `{"kernels": [...]}` line, the nvidia-smi line, and the last line
 `{"ok": true, "device": {...}}`.
 
@@ -443,13 +460,374 @@ def phase_timings(models, results: dict, smi: str) -> dict:
     }
 
 
+# ------------------------------------------------------------ train slice
+
+TRAIN_IN = (512, 1024)
+PARITY_IN = (128, 256)
+PEAK_BF16, PEAK_BYTES = 989e12, 3.35e12  # H100 SXM data sheet, dense bf16
+# Launches of each kernel direction in one multi-level step at iter_size 1:
+# kernel 2 on the 26 dilated 3x3s (layer3 23, layer4 3) per domain; kernel 5
+# on conv2..4 of the 6 D applications (2 in the G loss, 4 in the D losses),
+# wgrad only in the D losses; kernel 4 on conv1 of the 6 applications,
+# dgrad only in the G loss (the D losses detach the maps).
+STEP_LAUNCHES = {
+    "conv3x3_dil_fwd": 52, "conv3x3_dil_dgrad": 52,
+    "conv4x4_s2_fwd": 18, "conv4x4_s2_dgrad": 18, "conv4x4_s2_wgrad": 12,
+    "conv4x4_patch_fwd": 6, "conv4x4_patch_dgrad": 2,
+    "conv4x4_patch_wgrad": 4,
+}
+REPLACES = {
+    "conv3x3_dil_fwd": "adaptsegnet_tpu/ops/pallas/conv3x3_dil.py:204",
+    "conv3x3_dil_dgrad": "adaptsegnet_tpu/ops/pallas/conv3x3_dil.py:204",
+    "conv4x4_s2_fwd": "adaptsegnet_tpu/ops/pallas/conv4x4_s2.py:132",
+    "conv4x4_s2_dgrad": "adaptsegnet_tpu/ops/pallas/conv4x4_s2.py:299",
+    "conv4x4_s2_wgrad": "adaptsegnet_tpu/ops/pallas/conv4x4_s2.py:194",
+    "conv4x4_patch_fwd": "adaptsegnet_tpu/ops/pallas/conv4x4_patch.py:184",
+    "conv4x4_patch_dgrad": "adaptsegnet_tpu/ops/pallas/conv4x4_patch.py:295",
+    "conv4x4_patch_wgrad": "adaptsegnet_tpu/ops/pallas/conv4x4_patch.py:233",
+}
+
+
+def _bf16(rng, shape, scale=1.0):
+    return torch.from_numpy(
+        (rng.standard_normal(shape) * scale).astype(np.float32)).to(
+            "cuda", torch.bfloat16)
+
+
+def _nchw(t):
+    return t.permute(0, 3, 1, 2)
+
+
+def kernel_cases(rng):
+    """Every direction of kernels 2, 5 and 4 at the train step's shapes:
+    {name: [(label, kernel fn, plain fn, library fn, flops, bytes, f32_out)]}.
+    Each fn takes no argument; inputs are drawn here from `rng`."""
+    from torch.nn.grad import conv2d_input, conv2d_weight
+
+    from adaptsegnet_tpu_torch.ops.kernels import conv3x3_dil as k2
+    from adaptsegnet_tpu_torch.ops.kernels import conv4x4_patch as k4
+    from adaptsegnet_tpu_torch.ops.kernels import conv4x4_s2 as k5
+
+    cl = torch.channels_last
+    cases = {name: [] for name in STEP_LAUNCHES}
+    for label, c, d in (("layer3", 256, 2), ("layer4", 512, 4)):
+        x = _bf16(rng, (1, 64, 128, c))
+        dy = _bf16(rng, (1, 64, 128, c))
+        w = _bf16(rng, (c, c, 3, 3), 0.02)
+        flops = 2 * x.numel() * 9 * c
+        nbytes = 2 * (2 * x.numel() + w.numel())
+        wcl = w.contiguous(memory_format=cl)
+        cases["conv3x3_dil_fwd"].append((
+            label, lambda x=x, w=w, d=d: k2.conv3x3_dil_fwd(x, w, d),
+            lambda x=x, w=w, d=d: k2.conv3x3_dil_plain(x, w, d),
+            lambda x=x, w=wcl, d=d: F.conv2d(_nchw(x), w, None, 1, d, d),
+            flops, nbytes, False))
+        cases["conv3x3_dil_dgrad"].append((
+            label, lambda dy=dy, w=w, d=d: k2.conv3x3_dil_dgrad(dy, w, d),
+            lambda dy=dy, w=w, d=d: k2.conv3x3_dil_plain(
+                dy, k2.flip_weights(w), d),
+            lambda dy=dy, w=wcl, d=d, s=(1, c, 64, 128): conv2d_input(
+                s, w, _nchw(dy), 1, d, d),
+            flops, nbytes, False))
+    for label, (h, wd, cin, cout) in (("conv2", (256, 512, 64, 128)),
+                                      ("conv3", (128, 256, 128, 256)),
+                                      ("conv4", (64, 128, 256, 512))):
+        x = _bf16(rng, (1, h, wd, cin))
+        dy = _bf16(rng, (1, h // 2, wd // 2, cout))
+        w = _bf16(rng, (cout, cin, 4, 4), 0.02)
+        b = _bf16(rng, (cout,), 0.1)
+        flops = 2 * dy.numel() * 16 * cin
+        io = 2 * (x.numel() + dy.numel() + w.numel())
+        wcl = w.contiguous(memory_format=cl)
+        cases["conv4x4_s2_fwd"].append((
+            label, lambda x=x, w=w, b=b: k5.conv4x4_s2_fwd(x, w, b),
+            lambda x=x, w=w, b=b: k5.conv4x4_s2_fwd_plain(x, w, b),
+            lambda x=x, w=wcl, b=b: F.conv2d(_nchw(x), w, b, 2, 1),
+            flops, io + 4 * cout, False))
+        cases["conv4x4_s2_dgrad"].append((
+            label, lambda dy=dy, w=w, hw=(h, wd): k5.conv4x4_s2_dgrad(dy, w, hw),
+            lambda dy=dy, w=w, hw=(h, wd): k5.conv4x4_s2_dgrad_plain(dy, w, hw),
+            lambda dy=dy, w=wcl, s=(1, cin, h, wd): conv2d_input(
+                s, w, _nchw(dy), 2, 1),
+            flops, io, False))
+        cases["conv4x4_s2_wgrad"].append((
+            label, lambda x=x, dy=dy: k5.conv4x4_s2_wgrad(x, dy),
+            lambda x=x, dy=dy: k5.conv4x4_s2_wgrad_plain(x, dy),
+            lambda x=x, dy=dy, s=tuple(w.shape): conv2d_weight(
+                _nchw(x), s, _nchw(dy), 2, 1),
+            flops, io + 2 * w.numel(), True))
+    n, c, (h, wd) = 1, 19, TRAIN_IN
+    x = torch.softmax(_bf16(rng, (n, c, h, wd), 2.0).float(), 1).to(torch.bfloat16)
+    dy = _bf16(rng, (n, h // 2, wd // 2, 64))
+    w = _bf16(rng, (64, c, 4, 4), 0.05)
+    b = _bf16(rng, (64,), 0.1)
+    flops = 2 * dy.numel() * 16 * c
+    io = 2 * (x.numel() + dy.numel() + w.numel())
+    cases["conv4x4_patch_fwd"].append((
+        "conv1", lambda: k4.conv4x4_patch_fwd(x, w, b),
+        lambda: k4.conv4x4_patch_fwd_plain(x, w, b),
+        lambda: F.conv2d(x, w, b, 2, 1), flops, io + 4 * 64, False))
+    cases["conv4x4_patch_dgrad"].append((
+        "conv1", lambda: k4.conv4x4_patch_dgrad(dy, w, (h, wd)),
+        lambda: k4.conv4x4_patch_dgrad_plain(dy, w, (h, wd)),
+        lambda: conv2d_input((n, c, h, wd), w, _nchw(dy), 2, 1),
+        flops, io, False))
+    cases["conv4x4_patch_wgrad"].append((
+        "conv1", lambda: k4.conv4x4_patch_wgrad(x, dy),
+        lambda: k4.conv4x4_patch_wgrad_plain(x, dy),
+        lambda: conv2d_weight(x, tuple(w.shape), _nchw(dy), 2, 1),
+        flops, io + 2 * w.numel(), True))
+    return cases
+
+
+def compare_outputs(got, ref, f32_out: bool) -> tuple[float, float]:
+    """Kernel vs plain version on the same bf16 inputs. Both form exact
+    products and sum them in f32 in different orders, so they differ by
+    f32 rounding before the output's own rounding. bf16 outputs: within one
+    bf16 ulp of the plain value (2^-7 relative) plus 1e-3 of the largest
+    magnitude; f32 outputs (wgrad): within 1e-4 of the largest magnitude.
+    Returns (max abs error, max abs error / max |plain|)."""
+    got, ref = got.float(), ref.float()
+    check(got.shape == ref.shape, f"shape {tuple(got.shape)} vs {tuple(ref.shape)}")
+    err = (got - ref).abs()
+    scale = ref.abs().max().item()
+    tol = (1e-4 * scale if f32_out
+           else 2.0 ** -7 * ref.abs() + 1e-3 * scale)
+    ok = bool(torch.isfinite(got).all()) and bool((err <= tol).all())
+    worst = err.max().item()
+    check(ok, f"kernel vs plain: max abs error {worst:.4g} at scale {scale:.4g}")
+    return worst, worst / max(scale, 1e-30)
+
+
+def phase_train_kernels(smi: str) -> dict:
+    """Each new kernel direction against its plain version at the train
+    shapes, then its time beside the plain version's, the library call's
+    and its bound. Per direction the numbers are summed over the shapes the
+    main path gives it (one call each)."""
+    from adaptsegnet_tpu_torch.ops.kernels import KERNELS
+
+    rng = np.random.default_rng(SEED + 10)
+    rows = {}
+    for name, cases in kernel_cases(rng).items():
+        tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, ops_ms=0.0,
+                   bytes_ms=0.0, err=0.0)
+        for label, kern, plain, lib, flops, nbytes, f32_out in cases:
+            before = KERNELS[name].launches
+            got = kern()
+            torch.cuda.synchronize()
+            check(KERNELS[name].launches == before + 1,
+                  f"{name} did not count its launch")
+            err, rel = compare_outputs(got, plain(), f32_out)
+            ms = cuda_ms(kern, iters=20)
+            plain_ms = cuda_ms(plain, iters=5)
+            lib_ms = cuda_ms(lib, iters=20)
+            ops_ms, bytes_ms = flops / PEAK_BF16 * 1e3, nbytes / PEAK_BYTES * 1e3
+            print(f"phase 8: {name} {label}: max abs err {err:.3g} "
+                  f"({rel:.2e} of max |plain|); kernel {ms * 1e3:.1f} us "
+                  f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms * 1e3:.1f} "
+                  f"us, library {lib_ms * 1e3:.1f} us, bound "
+                  f"{max(ops_ms, bytes_ms) * 1e3:.2f} us ({flops / 1e9:.2f} "
+                  f"GFLOP, {nbytes / 1e6:.1f} MB) [{smi}]")
+            for k, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                         ("ops_ms", ops_ms), ("bytes_ms", bytes_ms)):
+                tot[k] += v
+            tot["err"] = max(tot["err"], err)
+        rows[name] = {
+            "name": name, "route": "cuda",
+            "source": "adaptsegnet_tpu_torch/csrc/" + name.rsplit("_", 1)[0] + ".cu",
+            "replaces": REPLACES[name], "launches": None,
+            "max_abs_err": tot["err"], "ms": tot["ms"],
+            "plain_ms": tot["plain_ms"],
+            "bound_ms": max(tot["ops_ms"], tot["bytes_ms"]),
+            "bound_by": "operations" if tot["ops_ms"] >= tot["bytes_ms"] else "bytes",
+            "library_ms": tot["library_ms"],
+        }
+    return rows
+
+
+def train_batch(hw, seed, device="cuda"):
+    """One seeded synthetic (iter_size 1, bs 1) batch: preprocessed random
+    images for both domains, labels uniform over the 19 classes with 10 %
+    ignored (255)."""
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, 19, (1, 1) + hw)
+    labels[rng.random((1, 1) + hw) < 0.1] = 255
+    return {
+        "images": torch.from_numpy(make_images(1, hw, seed)[None]).to(device),
+        "target_images": torch.from_numpy(
+            make_images(1, hw, seed + 1)[None]).to(device),
+        "labels": torch.from_numpy(labels).to(device),
+    }
+
+
+def train_state(dtype: str, device, hw):
+    from adaptsegnet_tpu_torch.train.build import build_train_state
+    from adaptsegnet_tpu_torch.train.config import TrainConfig
+    from adaptsegnet_tpu_torch.train.steps import make_adversarial_step
+
+    cfg = TrainConfig(source_only=False, level="multi-level", warper=False,
+                      compute_dtype=dtype, restore_from="", random_seed=SEED)
+    state = build_train_state(cfg, torch.device(device))
+    return state, make_adversarial_step(input_hw=hw)
+
+
+def phase_train(smi: str, results: dict, warmup: int = 2, steps: int = 10) -> None:
+    """The bf16 multi-level step at 512x1024, bs 1, full DeeplabMulti plus
+    D1/D2 (the main path of this slice)."""
+    from adaptsegnet_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    state, step = train_state("bfloat16", "cuda", TRAIN_IN)
+    batches = [train_batch(TRAIN_IN, SEED + 20 + i) for i in range(3)]
+    watch = {"G layer6": state.model.layer6.conv2d_list[0].weight,
+             "G layer3.0.conv2": state.model.layer3[0].conv2.weight,
+             "D1 conv1": state.d1.conv1.weight, "D2 conv3": state.d2.conv3.weight}
+    before = {k: v.detach().clone() for k, v in watch.items()}
+    t0 = time.perf_counter()
+    first = step(state, batches[0])
+    first = {k: float(v) for k, v in first.items()}
+    for i in range(1, warmup):
+        step(state, batches[i % 3])
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    check(all(np.isfinite(v) for v in first.values()), f"step 0 losses {first}")
+    check(abs(first["loss_seg2"] - np.log(19)) < 0.05,
+          f"step 0 loss_seg2 {first['loss_seg2']:.4f}, expected ~ln 19")
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(steps):
+        metrics = step(state, batches[i % 3])
+    end.record()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    ms = start.elapsed_time(end) / steps
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    last = {k: float(v) for k, v in metrics.items()}
+    check(all(np.isfinite(v) for v in last.values()), f"losses {last}")
+    for name, per_step in STEP_LAUNCHES.items():
+        check(counts[name] == per_step * steps,
+              f"{name} launched {counts[name]} times in {steps} steps, "
+              f"expected {per_step * steps}")
+    results["train_launches"] = counts
+    moved = {k: (v.detach() - before[k]).abs().max().item() for k, v in watch.items()}
+    check(all(m > 0 for m in moved.values()), f"parameters did not move: {moved}")
+    print(f"phase 9: bf16 multi-level step {TRAIN_IN} bs1, full DeeplabMulti + "
+          f"D1/D2: {ms:.3f} ms/step (CUDA events, {steps} steps after {warmup} "
+          f"warm-up, {warm_s:.1f} s with first-call set-up), peak memory "
+          f"{peak_gb:.2f} GiB; step 0 losses {json.dumps(first)}; step "
+          f"{warmup + steps - 1} losses {json.dumps(last)}; kernel launches in "
+          f"{steps} steps {counts}; largest |delta| of watched params "
+          f"{json.dumps(moved)} [{smi}]")
+    print(f"phase 9: train step profile: "
+          f"{profile_eval(lambda: step(state, batches[0]), iters=3)}")
+
+
+def _flat_grads(modules):
+    return torch.cat([p.grad.detach().float().flatten().cpu()
+                      for m in modules for p in m.parameters()
+                      if p.grad is not None])
+
+
+def phase_train_parity() -> None:
+    """One multi-level step on the card against the same step on the CPU
+    (plain versions) from the same weights and batch, at PARITY_IN: layer3/4
+    keep their widths, so kernel 2 is routed, and the D input is big enough
+    for kernels 4 and 5. BN statistics drawn checkpoint-like so that the
+    gradients are not vanishingly small. Tolerances: f32 (TF32 off) losses
+    within 1e-4 relative and each gradient vector within 1e-3 relative L2;
+    bf16 losses within 2e-2 relative and gradients within 2e-2 relative L2
+    (activations are rounded to bf16 after every op on both sides, in
+    different sum orders, through 101 layers)."""
+    for dtype, loss_tol, grad_tol in (("bfloat16", 2e-2, 2e-2),
+                                      ("float32", 1e-4, 1e-3)):
+        cpu, cpu_step = train_state(dtype, "cpu", PARITY_IN)
+        checkpoint_like_bn_(cpu.model, torch.Generator().manual_seed(SEED + 30))
+        card, card_step = train_state(dtype, "cuda", PARITY_IN)
+        card.load_state_dict(cpu.state_dict())
+        p0 = {k: v.detach().float().cpu().clone()
+              for k, v in cpu.model.state_dict().items()}
+        batch = train_batch(PARITY_IN, SEED + 40, device="cpu")
+        m_cpu = {k: float(v) for k, v in cpu_step(cpu, batch).items()}
+        m_card = {k: float(v) for k, v in card_step(
+            card, {k: v.cuda() for k, v in batch.items()}).items()}
+        loss_err = max(abs(m_card[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-6)
+                       for k in m_cpu)
+        errs = {}
+        for name, mods in (("G", [cpu.model, card.model]),
+                           ("D1", [cpu.d1, card.d1]), ("D2", [cpu.d2, card.d2])):
+            g_cpu, g_card = _flat_grads(mods[:1]), _flat_grads(mods[1:])
+            errs[name] = ((g_card - g_cpu).norm() / g_cpu.norm()).item()
+        d_cpu = torch.cat([(v.float() - p0[k]).flatten() for k, v in
+                           cpu.model.state_dict().items()])
+        d_card = torch.cat([(v.float().cpu() - p0[k]).flatten() for k, v in
+                            card.model.state_dict().items()])
+        errs["G delta"] = ((d_card - d_cpu).norm() / d_cpu.norm()).item()
+        check(loss_err <= loss_tol and max(errs.values()) <= grad_tol,
+              f"{dtype} card vs CPU step: losses {m_card} vs {m_cpu} (rel "
+              f"{loss_err:.3g}, need <= {loss_tol}); relative L2 {errs} "
+              f"(need <= {grad_tol})")
+        print(f"phase 10: {dtype} multi-level step card vs CPU {PARITY_IN}: "
+              f"largest relative loss error {loss_err:.3g} (<= {loss_tol}); "
+              f"relative L2 of grads and G update {json.dumps(errs)} (<= "
+              f"{grad_tol}); card losses {json.dumps(m_card)}")
+
+
+def phase_train_cli() -> None:
+    """cli.train (bf16, multi-level, no Warper) for 3 steps on synthetic
+    GTA5 / Cityscapes at 512x1024, then cli.evaluate on its snapshot."""
+    from adaptsegnet_tpu_torch.data import lists
+
+    root = os.path.join(WORK, "train_cli")
+    size = f"{TRAIN_IN[1]},{TRAIN_IN[0]}"
+    gta = lists.make_synthetic_gta5(os.path.join(root, "gta5"), n=3,
+                                    size_wh=TRAIN_IN[::-1])
+    cs = lists.make_synthetic_cityscapes(os.path.join(root, "cs"), "train", n=3,
+                                         size_wh=TRAIN_IN[::-1])
+    val = lists.make_synthetic_cityscapes(os.path.join(root, "cs"), "val", n=2,
+                                          size_wh=TRAIN_IN[::-1])
+    snap = os.path.join(root, "snap")
+    t0 = time.perf_counter()
+    for cmd in (
+        ["-m", "adaptsegnet_tpu_torch.cli.train", "--no-warper",
+         "--no-source-only", "--level", "multi-level", "--compute-dtype",
+         "bfloat16", "--data-dir", os.path.dirname(gta), "--data-list", gta,
+         "--data-dir-target", os.path.dirname(cs), "--data-list-target", cs,
+         "--input-size", size, "--input-size-target", size,
+         "--num-steps", "100", "--num-steps-stop", "3", "--restore-from", "",
+         "--snapshot-dir", snap, "--num-workers", "2"],
+        ["-m", "adaptsegnet_tpu_torch.cli.evaluate", "--data-dir",
+         os.path.dirname(val), "--data-list", val, "--restore-from",
+         os.path.join(snap, "multi_level", "GTA5_3.pth"), "--save",
+         os.path.join(root, "result")],
+    ):
+        proc = subprocess.run([sys.executable, *cmd], cwd=REPO,
+                              capture_output=True, text=True, timeout=600)
+        check(proc.returncode == 0,
+              f"{cmd[1]} exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+        if cmd[1].endswith("train"):
+            lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("iter")]
+    files = sorted(os.listdir(os.path.join(snap, "multi_level")))
+    for f in ("GTA5_3.pth", "GTA5_3_D1.pth", "GTA5_3_D2.pth"):
+        check(f in files, f"cli.train wrote {files}, no {f}")
+    pngs = os.listdir(os.path.join(root, "result"))
+    check(len(pngs) == 4, f"cli.evaluate wrote {pngs}")
+    print(f"phase 11: cli.train bf16 multi-level 3 steps {TRAIN_IN} -> {files}; "
+          f"last loss line: {lines[-1] if lines else 'none'}; cli.evaluate on "
+          f"GTA5_3.pth -> {len(pngs)} PNGs ({time.perf_counter() - t0:.1f} s "
+          "with process start-up)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
-    from adaptsegnet_tpu_torch.ops.kernels import KERNELS, _build
+    from adaptsegnet_tpu_torch.ops.kernels import LIBRARIES, _build
 
+    quick = "--kernels-only" in sys.argv[1:]
     smi = nvidia_smi()
     print(f"phase 1: device {torch.cuda.get_device_name(0)} (count "
           f"{torch.cuda.device_count()}), torch {torch.__version__}, CUDA "
@@ -457,9 +835,10 @@ def main() -> int:
           f"nvidia-smi: {smi}")
 
     t0 = time.perf_counter()
-    logs = _build.build(list(KERNELS))
+    logs = _build.build(list(LIBRARIES))
     ptxas = " | ".join(ln.strip() for log in logs.values()
-                       for ln in log.splitlines() if "registers" in ln)
+                       for ln in log.splitlines()
+                       if "registers" in ln or "spill" in ln)
     print(f"phase 2: built {sorted(logs) or 'nothing (cached)'} in "
           f"{time.perf_counter() - t0:.1f} s; ptxas: {ptxas}")
 
@@ -468,6 +847,9 @@ def main() -> int:
     os.makedirs(WORK)
     try:
         phase_kernels(results)
+        if quick:
+            phase_train_kernels(smi)
+            return 0
         cpu_model, models = build_models((torch.bfloat16, torch.float32))
         phase_bf16_eval(models[torch.bfloat16], results)
         phase_f32_card_vs_cpu(cpu_model, models[torch.float32])
@@ -475,10 +857,18 @@ def main() -> int:
         kernel = phase_timings(models, results, smi)
         phase_evaluator(models[torch.float32], smi,
                         results[f"eval_ms_{torch.float32}"])
+        del cpu_model, models
+        torch.cuda.empty_cache()
+        train_rows = phase_train_kernels(smi)
+        phase_train(smi, results)
+        phase_train_parity()
+        phase_train_cli()
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
-    print(json.dumps({"kernels": [kernel]}))
+    for name, row in train_rows.items():
+        row["launches"] = results["train_launches"][name]
+    print(json.dumps({"kernels": [kernel, *train_rows.values()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,7 +13,12 @@ import torch
 
 import adaptsegnet_tpu_torch
 from adaptsegnet_tpu_torch.cli import evaluate as cli_evaluate
-from adaptsegnet_tpu_torch.models import DeeplabMulti, ResNetBackbone
+from adaptsegnet_tpu_torch.cli import train as cli_train
+from adaptsegnet_tpu_torch.models import (
+    DeeplabMulti,
+    FCDiscriminator,
+    ResNetBackbone,
+)
 
 PKG_DIR = pathlib.Path(adaptsegnet_tpu_torch.__file__).parent
 REPO = PKG_DIR.parent
@@ -45,9 +50,7 @@ def test_every_module_imports_without_jax():
     assert "imported" in proc.stdout
 
 
-@pytest.mark.parametrize("path", sorted(PKG_DIR.rglob("*.py")),
-                         ids=lambda p: str(p.relative_to(PKG_DIR)))
-def test_no_forbidden_import_in_source(path):
+def _assert_no_forbidden_import(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
@@ -60,6 +63,16 @@ def test_no_forbidden_import_in_source(path):
             assert name.split(".")[0] not in FORBIDDEN, (path, name)
 
 
+@pytest.mark.parametrize("path", sorted(PKG_DIR.rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(PKG_DIR)))
+def test_no_forbidden_import_in_source(path):
+    _assert_no_forbidden_import(path)
+
+
+def test_chip_smoke_imports_no_jax():
+    _assert_no_forbidden_import(REPO / "chip_smoke.py")
+
+
 def test_entry_points_need_cuda_unless_cpu(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -69,8 +82,13 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         DeeplabMulti(device="cuda")
     with pytest.raises(RuntimeError, match="no CUDA device"):
+        FCDiscriminator()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         cli_evaluate.main(["--restore-from", "unused.pth",
                            "--save", str(tmp_path / "out")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli_train.main(["--no-warper", "--restore-from", "",
+                        "--snapshot-dir", str(tmp_path / "snap")])
     assert next(ResNetBackbone(layers=(1, 1, 1, 1), device="cpu")
                 .parameters()).device.type == "cpu"
 
