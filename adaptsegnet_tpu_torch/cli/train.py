@@ -3,8 +3,9 @@ card (`--cpu` for the CPU).
 
 The JAX package's flag surface (reference train_gta2cityscapes_multi.py:
 72-156) with the mode constants as real flags (--source-only /
---no-source-only, --level). Ported modes: source-only and single-level
-without the Warper (--no-warper), and multi-level.
+--no-source-only, --level). With no flags it trains the fork's default
+mode: source-only with the Warper (Batch norm, 8 layers). Single-level with
+or without the Warper and multi-level are ported too.
 """
 
 from __future__ import annotations

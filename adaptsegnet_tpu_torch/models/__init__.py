@@ -1,5 +1,5 @@
-"""Models of the port: the multi-level DeepLab-v2 segmenter and the
-fully-convolutional discriminator."""
+"""Models of the port: the multi-level DeepLab-v2 segmenter, the
+fully-convolutional discriminator and the flow-field Warper."""
 
 from adaptsegnet_tpu_torch.models.deeplab_resnet import (
     Bottleneck,
@@ -8,6 +8,7 @@ from adaptsegnet_tpu_torch.models.deeplab_resnet import (
     ResNetBackbone,
 )
 from adaptsegnet_tpu_torch.models.discriminator import FCDiscriminator
+from adaptsegnet_tpu_torch.models.warper import Warper
 
 __all__ = ["Bottleneck", "ClassifierModule", "DeeplabMulti", "FCDiscriminator",
-           "ResNetBackbone"]
+           "ResNetBackbone", "Warper"]

@@ -1,8 +1,12 @@
 """Building blocks: frozen-BN folded convs, maxpool, the discriminator's
-init law and leaky ReLU.
+init law and leaky ReLU, and the Warper's convs, init law and live BN.
 
 Counterpart of adaptsegnet_tpu/models/layers.py with frozen BN
-(`bn_mode='frozen'`; train-mode BN, `--bn-mode batch`, is not ported yet).
+(`bn_mode='frozen'`; train-mode BN, `--bn-mode batch`, is not ported yet)
+for the segmenter, and the Warper's parts: `xavier_normal_init` (:56), the
+4x4/s2/p1 routing of `Conv2d` (:96-137, here `conv2d`), `ConvTranspose2d`
+(:157, with ops/conv_transpose4x4.py's function) and the live BatchNorm of
+adaptsegnet_tpu/models/warper.py::_WarperBN (:87-100).
 Activations are NCHW views in `channels_last` memory, i.e. NHWC bytes as in
 the JAX package; parameters are stored f32 and cast to the compute dtype at
 use. Gradients reach `conv.weight` through the BN fold; the scale and the
@@ -19,6 +23,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from adaptsegnet_tpu_torch.ops.conv3x3 import conv3x3_s1
+from adaptsegnet_tpu_torch.ops.conv4x4 import conv4x4_stride2
+from adaptsegnet_tpu_torch.ops.precision import tf32_for
 
 BN_EPS = 1e-5
 
@@ -125,3 +131,110 @@ def leaky_relu(x: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:
     """where(x >= 0, x, slope * x): the JAX form (layers.py:621), whose
     gradient at exactly 0 is 1 (torch's F.leaky_relu gives the slope)."""
     return torch.where(x >= 0, x, x * negative_slope)
+
+
+# ------------------------------------------------------------- the Warper's
+
+
+class ConvTranspose2d(nn.Module):
+    """Parameter holder with torch ConvTranspose2d(k=4, s=2, p=1)'s keys:
+    `weight` (Cin, Cout, 4, 4), optional `bias`. Allocated uninitialised."""
+
+    def __init__(self, cin: int, cout: int, bias: bool = False):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(cin, cout, 4, 4))
+        self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
+
+
+def xavier_normal_(module: nn.Module, generator: torch.Generator,
+                   gain: float = 0.02) -> None:
+    """torch init.xavier_normal_(gain) on every Conv2d / ConvTranspose2d of
+    `module`, biases 0: N(0, gain^2 * 2 / (fan_in + fan_out)) with fan_in =
+    k*k*Cin and fan_out = k*k*Cout (JAX `xavier_normal_init`, the
+    reference Warper's 'xavier' init, model/warper.py:147-178)."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, (Conv2d, ConvTranspose2d)):
+                shape = m.weight.shape
+                cout, cin = ((shape[1], shape[0]) if isinstance(m, ConvTranspose2d)
+                             else (shape[0], shape[1]))
+                k2 = shape[2] * shape[3]
+                std = gain * math.sqrt(2.0 / (k2 * cin + k2 * cout))
+                m.weight.copy_(torch.empty(shape).normal_(
+                    0.0, std, generator=generator))
+                if m.bias is not None:
+                    m.bias.zero_()
+
+
+def conv2d(x: torch.Tensor, conv: Conv2d, dtype: torch.dtype) -> torch.Tensor:
+    """conv(x) in the compute dtype on an NCHW view in channels_last memory.
+
+    A 4x4 / stride-2 / pad-1 conv on an even-sized input goes through
+    ops/conv4x4.py::conv4x4_stride2 (kernel 5 where it applies: bf16, 2*Cin
+    and Cout multiples of 128), as JAX's Conv2d routes it to its matmul
+    lowering; any other conv is a cuDNN conv."""
+    w = conv.weight.to(dtype)
+    b = None if conv.bias is None else conv.bias.to(dtype)
+    x = x.to(dtype)
+    if (w.shape[-1] == 4 and conv.stride == 2 and conv.padding == 1
+            and conv.dilation == 1 and x.shape[2] % 2 == 0
+            and x.shape[3] % 2 == 0):
+        return conv4x4_stride2(x.permute(0, 2, 3, 1), w, b).permute(0, 3, 1, 2)
+    return F.conv2d(x, w.contiguous(memory_format=torch.channels_last), b,
+                    conv.stride, conv.padding, conv.dilation)
+
+
+def conv_transpose4x4_stride2(x: torch.Tensor, conv: ConvTranspose2d,
+                              dtype: torch.dtype,
+                              weight: torch.Tensor | None = None) -> torch.Tensor:
+    """torch ConvTranspose2d(Cin, Cout, 4, stride 2, padding 1) in the
+    compute dtype (adaptsegnet_tpu/ops/conv_transpose4x4.py, custom XLA
+    lowering there, a library call here): the products of the dtype's
+    values summed in f32 with the bias, rounded once to the dtype, as the
+    JAX lowering's f32 accumulation does."""
+    w = (conv.weight if weight is None else weight).to(dtype).float()
+    b = None if conv.bias is None else conv.bias.to(dtype).float()
+    with tf32_for(dtype):
+        y = F.conv_transpose2d(x.to(dtype).float(), w, b, 2, 1)
+    return y.to(dtype).contiguous(memory_format=torch.channels_last)
+
+
+class WarperBatchNorm2d(nn.Module):
+    """The Warper's live BatchNorm: flax nn.BatchNorm(momentum=0.9, eps 1e-5)
+    as adaptsegnet_tpu/models/warper.py::_WarperBN builds it, with torch
+    BatchNorm2d's state-dict keys.
+
+    In train mode (`self.training`) it normalises by the batch statistics,
+    computed in f32 as flax does (mean and E[x^2] - mean^2, the biased
+    variance, clipped at 0), and updates the running statistics in place
+    with flax's convention ra = 0.9 * ra + 0.1 * batch, the variance
+    biased (torch's nn.BatchNorm2d would store the unbiased one). In eval
+    mode it uses the running statistics. The affine (weight ~ N(1, 0.02),
+    bias 0) applies in f32; the output is rounded once to x's dtype.
+    """
+
+    def __init__(self, features: int, momentum: float = 0.9,
+                 eps: float = 1e-5):
+        super().__init__()
+        self.momentum, self.eps = momentum, eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        shape = (1, -1, 1, 1)
+        if self.training:
+            mean = xf.mean(dim=(0, 2, 3))
+            var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean,
+                              min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight.float()
+        y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.float().view(shape)
+        return y.to(x.dtype)

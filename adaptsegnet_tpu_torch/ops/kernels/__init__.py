@@ -24,14 +24,21 @@ from adaptsegnet_tpu_torch.ops.kernels.upsample_argmax import (
     upsample_argmax,
     upsample_argmax_plain,
 )
+from adaptsegnet_tpu_torch.ops.kernels.upsample_warp import (
+    upsample_warp_dflow,
+    upsample_warp_dx,
+    upsample_warp_fwd,
+)
 
 KERNELS = {fn.__name__: fn for fn in (
     upsample_argmax,
     conv3x3_dil_fwd, conv3x3_dil_dgrad,
     conv4x4_s2_fwd, conv4x4_s2_dgrad, conv4x4_s2_wgrad,
     conv4x4_patch_fwd, conv4x4_patch_dgrad, conv4x4_patch_wgrad,
+    upsample_warp_fwd, upsample_warp_dx, upsample_warp_dflow,
 )}
-LIBRARIES = ("upsample_argmax", "conv3x3_dil", "conv4x4_s2", "conv4x4_patch")
+LIBRARIES = ("upsample_argmax", "conv3x3_dil", "conv4x4_s2", "conv4x4_patch",
+             "upsample_warp")
 
 
 def reset_launch_counts() -> None:
@@ -58,4 +65,7 @@ __all__ = [
     "reset_launch_counts",
     "upsample_argmax",
     "upsample_argmax_plain",
+    "upsample_warp_dflow",
+    "upsample_warp_dx",
+    "upsample_warp_fwd",
 ]

@@ -1,8 +1,9 @@
 """Segmentation and adversarial objectives.
 
 Counterpart of adaptsegnet_tpu/ops/losses.py (`cross_entropy_2d` :21,
-`bce_with_logits` :77, `ls_gan_mse` :88, `gan_loss` :98). NHWC logits, f32
-scalar means:
+`cross_entropy_2d_planar` :49, `bce_with_logits` :77, `ls_gan_mse` :88,
+`gan_loss` :98). NHWC logits (planar for the `_planar` CE), f32 scalar
+means:
   * seg loss: torch.nn.CrossEntropyLoss(ignore_index=255) over valid pixels,
     except that a batch with every pixel ignored gives 0 (torch gives NaN),
     as the JAX package does;
@@ -26,6 +27,21 @@ def cross_entropy_2d(logits: torch.Tensor, labels: torch.Tensor,
     safe = torch.where(valid, labels, torch.zeros_like(labels))
     logz = torch.logsumexp(logits, dim=-1)
     picked = logits.gather(-1, safe.unsqueeze(-1)).squeeze(-1)
+    nll = (logz - picked) * valid.float()
+    count = valid.sum().float().clamp(min=1.0)
+    return nll.sum() / count
+
+
+def cross_entropy_2d_planar(logits: torch.Tensor, labels: torch.Tensor,
+                            ignore_label: int = 255) -> torch.Tensor:
+    """cross_entropy_2d on planar (N, C, H, W) logits, as kernel 6 emits
+    them: the same mean NLL, reduced over the class axis 1."""
+    logits = logits.float()
+    labels = labels.long()
+    valid = labels != ignore_label
+    safe = torch.where(valid, labels, torch.zeros_like(labels))
+    logz = torch.logsumexp(logits, dim=1)
+    picked = logits.gather(1, safe.unsqueeze(1)).squeeze(1)
     nll = (logz - picked) * valid.float()
     count = valid.sum().float().clamp(min=1.0)
     return nll.sum() / count

@@ -1,10 +1,12 @@
 """Bilinear resize with PyTorch `align_corners=True` semantics, as matmuls.
 
 Counterpart of adaptsegnet_tpu/ops/resize.py (`_interp_matrix` :30,
+`_interp_matrix_half_pixel` :59, `resize_bilinear_half_pixel` :106,
 `resize_bilinear_align_corners` :113, `upsample_logits` :296). 1-D
-align-corners interpolation along an axis is an (out_len, in_len) matrix
-with at most two non-zeros per row, built from f64 source coordinates and
-stored as f32; a separable 2-D resize is two matmuls, H first, then W.
+align-corners (or half-pixel) interpolation along an axis is an
+(out_len, in_len) matrix with at most two non-zeros per row, built from f64
+source coordinates and stored as f32; a separable 2-D resize is two
+matmuls, H first, then W.
 `F.interpolate` is not used on the parity path: its f32 coordinate
 arithmetic is not this matrix's, and the eval masks are held to it.
 """
@@ -43,25 +45,52 @@ def _interp_matrix(in_len: int, out_len: int) -> np.ndarray:
     return m.astype(np.float32)
 
 
-def resize_bilinear_align_corners(
-    x: torch.Tensor, out_hw: tuple[int, int], exact: bool = True
-) -> torch.Tensor:
-    """Resize NHWC `x` to `out_hw` with align_corners=True bilinear.
+@functools.lru_cache(maxsize=64)
+def _interp_matrix_half_pixel(in_len: int, out_len: int) -> np.ndarray:
+    """(out_len, in_len) align_corners=False (half-pixel) matrix: src =
+    (o + 0.5) * in/out - 0.5 clamped to [0, in_len - 1], the default of the
+    nn.Upsample inside the reference Warper's decoder. Cached; read only."""
+    m = np.zeros((out_len, in_len), dtype=np.float64)
+    src = np.clip((np.arange(out_len, dtype=np.float64) + 0.5)
+                  * (in_len / out_len) - 0.5, 0.0, in_len - 1)
+    lo = np.floor(src).astype(np.int64)
+    hi = np.minimum(lo + 1, in_len - 1)
+    frac = src - lo
+    rows = np.arange(out_len)
+    np.add.at(m, (rows, lo), 1.0 - frac)
+    np.add.at(m, (rows, hi), frac)
+    return m.astype(np.float32)
 
-    exact=True: both matmuls in f32 (TF32 off on the parity path, see
-    ops/precision.py), result cast back to x.dtype. exact=False: stay in
-    x.dtype (the throughput path).
-    """
+
+def _separable_resize(x: torch.Tensor, out_hw: tuple[int, int], matrix_fn,
+                      exact: bool) -> torch.Tensor:
+    """NHWC resize as two matmuls, H first, then W. exact=True: in f32 (TF32
+    off on the parity path, see ops/precision.py), cast back to x.dtype;
+    exact=False: in x.dtype with x.dtype matrices (the bf16 path)."""
     n, h, w, c = x.shape
     oh, ow = out_hw
     if (h, w) == (oh, ow):
         return x
     ctype = torch.float32 if exact else x.dtype
-    mh = torch.from_numpy(_interp_matrix(h, oh)).to(x.device, ctype)
-    mw = torch.from_numpy(_interp_matrix(w, ow)).to(x.device, ctype)
+    mh = torch.from_numpy(matrix_fn(h, oh)).to(x.device, ctype)
+    mw = torch.from_numpy(matrix_fn(w, ow)).to(x.device, ctype)
     y = torch.einsum("oh,nhwc->nowc", mh, x.to(ctype))
     y = torch.einsum("pw,nhwc->nhpc", mw, y)
     return y.to(x.dtype)
+
+
+def resize_bilinear_half_pixel(
+    x: torch.Tensor, out_hw: tuple[int, int], exact: bool = True
+) -> torch.Tensor:
+    """Resize NHWC `x` with align_corners=False (half-pixel) bilinear."""
+    return _separable_resize(x, out_hw, _interp_matrix_half_pixel, exact)
+
+
+def resize_bilinear_align_corners(
+    x: torch.Tensor, out_hw: tuple[int, int], exact: bool = True
+) -> torch.Tensor:
+    """Resize NHWC `x` to `out_hw` with align_corners=True bilinear."""
+    return _separable_resize(x, out_hw, _interp_matrix, exact)
 
 
 def upsample_logits(

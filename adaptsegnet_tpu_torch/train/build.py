@@ -5,8 +5,10 @@ Counterpart of adaptsegnet_tpu/train/build.py (`build_train_state`
 surgery (reference train_gta2cityscapes_multi.py:202-215: `Scale.` /
 `module.` prefixes stripped, layer5 skipped when num_classes == 19, both
 heads with --not-restore-last), D1/D2 for the adversarial modes, and their
-optimizers. Weights are drawn from torch generators seeded with
---random-seed (G) and --random-seed + 1 / + 2 (D1 / D2).
+optimizers, and the Warper when the mode uses it (source-only and
+single-level with --warper; `:187-201`) in the compute dtype, with planar
+flow and no optimizer. Weights are drawn from torch generators seeded with
+--random-seed (G), --random-seed + 1 / + 2 (D1 / D2) and + 3 (Warper).
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import sys
 
 import torch
 
-from adaptsegnet_tpu_torch.models import DeeplabMulti, FCDiscriminator
+from adaptsegnet_tpu_torch.models import DeeplabMulti, FCDiscriminator, Warper
 from adaptsegnet_tpu_torch.train.config import TrainConfig, check_supported
 from adaptsegnet_tpu_torch.train.optim import (
     make_discriminator_optimizer,
@@ -78,4 +80,10 @@ def build_train_state(cfg: TrainConfig, device: torch.device) -> TrainState:
         state.d2, state.d2_opt = disc(2)
         if cfg.level == "multi-level":
             state.d1, state.d1_opt = disc(1)
+    if cfg.uses_warper:
+        state.warper = Warper(
+            num_layers=cfg.warper_num_layers, norm=cfg.warper_norm,
+            dtype=dtype, device=device,
+            generator=torch.Generator().manual_seed(seed + 3))
+        state.warper.check_size(cfg.input_hw)
     return state

@@ -4,9 +4,8 @@ Counterpart of adaptsegnet_tpu/train/config.py (reference
 train_gta2cityscapes_multi.py:24-156): the same flags, names, types and
 defaults, parsed the same way. What the port does not run yet raises
 NotImplementedError from `check_supported` with a pointer to ROADMAP.md:
-the Warper (when the mode would build it), `--bn-mode batch`,
-`--optim-dup-quirk`, `--source Synscapes`, `--model DeeplabVGG`,
-`--tensorboard`, and more than one device. Deviations from the JAX
+`--bn-mode batch`, `--optim-dup-quirk`, `--source Synscapes`,
+`--model DeeplabVGG`, `--tensorboard`, and more than one device. Deviations from the JAX
 defaults: none; `--orbax-checkpoints` keeps its name for flag parity and
 saves the full state with torch.save (utils/checkpoint.py).
 """
@@ -110,7 +109,6 @@ class TrainConfig:
 def check_supported(cfg: TrainConfig) -> None:
     """Raise NotImplementedError for what the port does not run yet."""
     todo = {
-        "--warper (the flow-field Warper; pass --no-warper)": cfg.uses_warper,
         "--bn-mode batch": cfg.bn_mode != "frozen",
         "--optim-dup-quirk": cfg.optim_dup_quirk,
         "--source Synscapes": cfg.source != "GTA5",
@@ -122,7 +120,7 @@ def check_supported(cfg: TrainConfig) -> None:
         if hit:
             raise NotImplementedError(
                 f"{flag} is not ported yet: see ROADMAP.md, open items "
-                "(deferred train flags, the Warper slice, scale-out)")
+                "(deferred train flags, scale-out)")
 
 
 def _add_bool_flag(parser, name, default, help_):

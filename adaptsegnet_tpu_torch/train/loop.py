@@ -6,7 +6,8 @@ prefetching loader, collated to the step layout (iter_size, B, ...). The
 loss line of step i is printed after step i+1 is enqueued, so reading the
 metrics (a device sync) overlaps the next step. Snapshots keep the
 reference's .pth naming per mode subdir (source_only / single_level /
-multi_level); with --orbax-checkpoints the full state is saved beside them
+multi_level); with --orbax-checkpoints the full state (the Warper's
+running statistics included, where the mode builds it) is saved beside them
 and the latest one is resumed. SIGTERM / SIGINT end the run with a final
 snapshot.
 """

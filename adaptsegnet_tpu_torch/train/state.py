@@ -1,9 +1,11 @@
-"""The port's train state: G, D1, D2, their optimizers, the step count.
+"""The port's train state: G, D1, D2, the Warper, the optimizers, the step.
 
 Counterpart of adaptsegnet_tpu/train/state.py (`TrainState` with
-GeneratorState / DiscriminatorState). Modules and optimizers are updated in
-place. `state_dict()` / `load_state_dict()` carry the full state (weights,
-both optimizer states, step) for exact resume with torch.save, where the
+GeneratorState / DiscriminatorState / WarperState). Modules and optimizers
+are updated in place. The Warper has no optimizer: the reference never
+optimises it, only its live statistics move. `state_dict()` /
+`load_state_dict()` carry the full state (weights, the optimizer states, the
+Warper's statistics, step) for exact resume with torch.save, where the
 reference keeps only weights.
 """
 
@@ -35,6 +37,7 @@ class TrainState:
     d2: nn.Module | None = None
     d1_opt: torch.optim.Optimizer | None = None
     d2_opt: torch.optim.Optimizer | None = None
+    warper: nn.Module | None = None
     step: int = 0
 
     def set_lrs(self) -> None:
@@ -48,7 +51,8 @@ class TrainState:
 
     def _parts(self):
         return {"model": self.model, "g_opt": self.g_opt, "d1": self.d1,
-                "d2": self.d2, "d1_opt": self.d1_opt, "d2_opt": self.d2_opt}
+                "d2": self.d2, "d1_opt": self.d1_opt, "d2_opt": self.d2_opt,
+                "warper": self.warper}
 
     def state_dict(self) -> dict:
         sd = {k: v.state_dict() for k, v in self._parts().items()

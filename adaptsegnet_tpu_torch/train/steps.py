@@ -1,7 +1,7 @@
 """Train steps: source-only and adversarial (single- and multi-level), eager.
 
 Counterpart of adaptsegnet_tpu/train/steps.py (`make_source_only_step`
-:117-201 without the Warper, `make_adversarial_step` :204-443), keeping its
+:117-201, `make_adversarial_step` :204-443), keeping its
 choreography (reference train_gta2cityscapes_multi.py:385-464, :578-683):
   * generator loss = CE(pred2_s) + lambda_seg * CE(pred1_s)
     + lambda_adv1 * GAN(D1(sm1_t), source) + lambda_adv2 * GAN(D2(sm2_t),
@@ -17,12 +17,20 @@ The discriminator input is the planar softmax map of the upsampled raw
 logits (ops/resize.py::upsample_softmax_planar). bf16 models upsample the
 segmentation logits in bf16 (exact=False), f32 models exactly.
 
+With a Warper in the state (source-only and single-level; the fork's
+default mode is source-only with it), each micro-batch first runs the
+Warper on the source images, in train mode under `torch.no_grad()`: its BN
+running statistics move, its weights never do, and the flow is a constant
+of the loss (so the warp's d-flow kernel never runs). The main head's
+upsample is then the fused upsample + warp (ops/upsample_warp.py, kernel
+6) emitting planar logits for the planar CE; in single-level the source
+flow also warps the target prediction (the fork's quirk, `:270-277`), and
+the discriminator reads softmax(dim=1) of the warped planar maps.
+
 A step takes `batch = {'images': (iter_size, B, H, W, 3), 'labels':
 (iter_size, B, H, W), 'target_images': (iter_size, B, H, W, 3)}` on the
 model's device, updates the state in place and returns the metrics under
 the reference's names as 0-d f32 tensors (no host sync).
-
-Not ported yet: the Warper (`--warper`, ROADMAP slice 3).
 """
 
 from __future__ import annotations
@@ -30,11 +38,16 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from adaptsegnet_tpu_torch.ops.losses import cross_entropy_2d, gan_loss
+from adaptsegnet_tpu_torch.ops.losses import (
+    cross_entropy_2d,
+    cross_entropy_2d_planar,
+    gan_loss,
+)
 from adaptsegnet_tpu_torch.ops.resize import (
     upsample_logits,
     upsample_softmax_planar,
 )
+from adaptsegnet_tpu_torch.ops.upsample_warp import upsample_warp
 from adaptsegnet_tpu_torch.train.state import TrainState
 
 SOURCE_LABEL = 0.0  # reference :363
@@ -74,8 +87,19 @@ def _apply(state: TrainState) -> None:
     state.step += 1
 
 
+def _flow(state: TrainState, images: torch.Tensor):
+    """The Warper's flow for `images`, a constant of the loss (train mode:
+    the running statistics update); None without a Warper."""
+    if state.warper is None:
+        return None
+    state.warper.train()
+    with torch.no_grad():
+        return state.warper(images)[0]
+
+
 def make_source_only_step(input_hw=(512, 1024), iter_size: int = 1):
-    """Source-domain CE pretraining step (reference :230-314), no Warper."""
+    """Source-domain CE pretraining step (reference :230-314), with the
+    state's Warper when it has one."""
 
     def step(state: TrainState, batch) -> dict:
         exact = _exact(state.model)
@@ -83,9 +107,14 @@ def make_source_only_step(input_hw=(512, 1024), iter_size: int = 1):
         _zero_grads(state)
         total = torch.zeros((), device=batch["images"].device)
         for k in range(iter_size):
+            flow = _flow(state, batch["images"][k])
             _, pred2 = state.model(batch["images"][k])
-            loss = cross_entropy_2d(upsample_logits(pred2, input_hw, exact),
-                                    batch["labels"][k])
+            if flow is None:
+                loss = cross_entropy_2d(upsample_logits(pred2, input_hw, exact),
+                                        batch["labels"][k])
+            else:
+                loss = cross_entropy_2d_planar(
+                    upsample_warp(pred2, flow, input_hw), batch["labels"][k])
             (loss / iter_size).backward()
             total = total + loss.detach() / iter_size
         _apply(state)
@@ -103,7 +132,8 @@ def make_adversarial_step(
     input_hw=(512, 1024),
     iter_size: int = 1,
 ):
-    """Fused-order G/D adversarial step (reference :316-496, :498-722)."""
+    """Fused-order G/D adversarial step (reference :316-496, :498-722); the
+    state's Warper, if any, is used in single-level only (JAX :270-277)."""
     if level not in ("single-level", "multi-level"):
         raise NotImplementedError(f"level choice {level!r} is not implemented")
     criterion = gan_loss(gan)
@@ -122,14 +152,23 @@ def make_adversarial_step(
             metrics[name] = metrics[name] + value.detach() / iter_size
 
         for k in range(iter_size):
+            flow = None if multi else _flow(state, batch["images"][k])
             # Generator loss; the Ds are constants here.
             _set_requires_grad((d1, d2), False)
             pred1_s, pred2_s = state.model(batch["images"][k])
             labels = batch["labels"][k]
-            loss_seg2 = cross_entropy_2d(
-                upsample_logits(pred2_s, input_hw, exact), labels)
             pred1_t, pred2_t = state.model(batch["target_images"][k])
-            sm2_t = upsample_softmax_planar(pred2_t, input_hw)
+            if flow is None:
+                loss_seg2 = cross_entropy_2d(
+                    upsample_logits(pred2_s, input_hw, exact), labels)
+                sm2_t = upsample_softmax_planar(pred2_t, input_hw)
+                sm2_s = upsample_softmax_planar(pred2_s.detach(), input_hw)
+            else:
+                # the source flow warps both domains (the fork's quirk)
+                warped_s = upsample_warp(pred2_s, flow, input_hw)
+                loss_seg2 = cross_entropy_2d_planar(warped_s, labels)
+                sm2_t = torch.softmax(upsample_warp(pred2_t, flow, input_hw), 1)
+                sm2_s = torch.softmax(warped_s.detach(), 1)
             loss_adv2 = criterion(d2(sm2_t), SOURCE_LABEL)
             total = loss_seg2 + lambda_adv2 * loss_adv2
             if multi:
@@ -146,16 +185,16 @@ def make_adversarial_step(
             _set_requires_grad((d1, d2), True)
 
             # Discriminator losses on detached maps: each domain / 2.
-            def d_loss(d, raw_s, sm_t):
-                sm_s = upsample_softmax_planar(raw_s.detach(), input_hw)
+            def d_loss(d, sm_s, sm_t):
                 return (criterion(d(sm_s), SOURCE_LABEL) / 2.0
                         + criterion(d(sm_t.detach()), TARGET_LABEL) / 2.0)
 
-            loss_d2 = d_loss(d2, pred2_s, sm2_t)
+            loss_d2 = d_loss(d2, sm2_s, sm2_t)
             d_total = loss_d2
             add("loss_D2", loss_d2)
             if multi:
-                loss_d1 = d_loss(d1, pred1_s, sm1_t)
+                loss_d1 = d_loss(
+                    d1, upsample_softmax_planar(pred1_s.detach(), input_hw), sm1_t)
                 d_total = d_total + loss_d1
                 add("loss_D1", loss_d1)
             (d_total / iter_size).backward()

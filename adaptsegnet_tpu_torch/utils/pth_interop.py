@@ -11,9 +11,15 @@ DataParallel `module.` and caffe `Scale.` prefixes are stripped, and
 `from_jax_variables` carries a flax `{'params', 'batch_stats'}` tree of
 numpy arrays across to the port's keys (HWIO -> OIHW, BN
 `scale`/`mean`/`var` -> `weight`/`running_mean`/`running_var`), for
-DeeplabMulti / ResNetBackbone trees and for FCDiscriminator trees
-(`conv1`..`conv4`, `classifier`): the parity tests load identical weights
-into both packages with it.
+DeeplabMulti / ResNetBackbone trees, FCDiscriminator trees (`conv1`..`conv4`,
+`classifier`) and Warper trees (`encoder_d`, `decoder_d`: transposed convs
+HWIO -> (Cin, Cout, 4, 4), the `spectral` collection's `u` vectors): the
+parity tests load identical weights into both packages with it.
+
+The Warper's keys are the reference's; `warper_state_dict` is the
+counterpart of the JAX package's `warper_state_dict_to_variables`
+(adaptsegnet_tpu/utils/pth_interop.py:218): a reference Warper `.pth` minus
+the never-called `connection.*` module.
 """
 
 from __future__ import annotations
@@ -112,9 +118,54 @@ def _leaves(tree: Mapping[str, Any], path=()):
             yield path + (k,), v
 
 
+_WARPER_LEAVES = {"kernel": "weight", "u": "u", **_BN_LEAVES}
+_WARPER_NAME_RE = re.compile(r"^(down|up)(\d+)(_bn|_conv)?$")
+
+
+def _warper_key(path: tuple[str, ...], n_up: int, transposed: bool) -> str:
+    """Flax Warper path -> the reference key (models/warper.py)."""
+    part, name, leaf = path[0], path[1], _WARPER_LEAVES[path[-1]]
+    conv_idx = 1 if transposed else 2  # ConvTranspose, or Upsample + conv
+    if (part, name) == ("encoder_d", "out"):
+        return f"encoder_d.out.down.1.{leaf}"
+    if (part, name) == ("decoder_d", "output_conv"):
+        return f"decoder_d.up_list.{n_up}.output.{conv_idx}.{leaf}"
+    m = _WARPER_NAME_RE.match(name)
+    if m is None:
+        raise KeyError(f"unrecognized flax Warper path: {'/'.join(path)}")
+    kind, i, suffix = m.group(1), int(m.group(2)), m.group(3)
+    mod = "norm" if suffix == "_bn" else "l"
+    if kind == "down":
+        if i == 0:
+            return f"encoder_d.down_list.0.input.{leaf}"
+        return f"encoder_d.down_list.{i}.block.1.{mod}.{leaf}"
+    return f"decoder_d.up_list.{i}.block.{conv_idx}.{mod}.{leaf}"
+
+
+def _warper_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    leaves = [(path, v) for coll in ("params", "batch_stats", "spectral")
+              for path, v in _leaves(variables.get(coll, {}))]
+    dec = variables["params"]["decoder_d"]
+    n_up = sum(1 for k in dec if k.endswith("_conv") and k.startswith("up"))
+    transposed = any(path[0] == "decoder_d" and path[-1] == "kernel"
+                     and np.shape(v)[0] == 4 for path, v in leaves)
+    sd = {}
+    for path, value in leaves:
+        arr = np.array(value, dtype=np.float32)
+        if path[-1] == "kernel":
+            # HWIO -> OIHW, or -> (Cin, Cout, 4, 4) for a transposed conv
+            t = (2, 3, 0, 1) if path[0] == "decoder_d" and transposed else (3, 2, 0, 1)
+            arr = np.transpose(arr, t)
+        sd[_warper_key(path, n_up, transposed)] = torch.from_numpy(
+            np.ascontiguousarray(arr))
+    return sd
+
+
 def from_jax_variables(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
-    """Flax DeeplabMulti / ResNetBackbone / FCDiscriminator variables ->
-    port state dict."""
+    """Flax DeeplabMulti / ResNetBackbone / FCDiscriminator / Warper
+    variables -> port state dict."""
+    if "encoder_d" in variables.get("params", {}):
+        return _warper_from_jax(variables)
     sd: dict[str, torch.Tensor] = {}
     for coll in ("params", "batch_stats"):
         for path, value in _leaves(variables.get(coll, {})):
@@ -123,3 +174,13 @@ def from_jax_variables(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
                 arr = np.transpose(arr, (3, 2, 0, 1))  # HWIO -> OIHW
             sd[_torch_key(path)] = torch.from_numpy(np.ascontiguousarray(arr))
     return sd
+
+
+def warper_state_dict(sd: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """A reference Warper state dict (e.g. from `load_torch_state_dict`)
+    restricted to the keys the port's Warper has: the `connection.*` module,
+    constructed by the reference but never called (model/warper.py:27-33),
+    is dropped. Load the result with `load_into`."""
+    return {strip_prefix(k): v for k, v in sd.items()
+            if not strip_prefix(k).startswith("connection.")
+            and not k.endswith("num_batches_tracked")}

@@ -8,13 +8,15 @@
 
 The port's main paths are DeeplabMulti evaluation (ResNet-101 forward at
 512x1024 -> align-corners upsample to 1024x2048 -> first-index argmax ->
-uint8 masks -> PNGs -> mIoU) and the bf16 multi-level adversarial train
-step (DeeplabMulti + D1/D2 at 512x1024, bs 1). Phases, each printing one
-line or more (any failure exits nonzero, and there is no CPU fallback):
+uint8 masks -> PNGs -> mIoU), the bf16 multi-level adversarial train step
+(DeeplabMulti + D1/D2 at 512x1024, bs 1) and the fork's default train mode,
+the bf16 source-only step with the Warper (DeeplabMulti + an 8-layer
+Warper at 512x1024, bs 1). Phases, each printing one line or more (any
+failure exits nonzero, and there is no CPU fallback):
   1. device, torch and CUDA versions, nvidia-smi name and power limit;
-  2. build the four CUDA libraries from adaptsegnet_tpu_torch/csrc (one
+  2. build the five CUDA libraries from adaptsegnet_tpu_torch/csrc (one
      nvcc each, started together);
-  3. hold each kernel against its plain PyTorch version on the card;
+  3. hold kernel 1 against its plain PyTorch version on the card;
   4. full-width bf16 eval through make_eval_fn (the kernel's main path):
      launch counts zeroed before, read after; kernel tail vs plain tail;
   5. f32 eval on the card vs the CPU, same weights, 256x512 -> 512x1024
@@ -26,18 +28,31 @@ line or more (any failure exits nonzero, and there is no CPU fallback):
      (two runs of 20 and 120 images differenced, so the pipeline's fill
      and drain are timed apart);
   8. every direction of the train kernels (2: conv3x3_dil fwd/dgrad at
-     layer3 and layer4; 5: conv4x4_s2 fwd/dgrad/wgrad at D conv2..4; 4:
-     conv4x4_patch fwd/dgrad/wgrad at D conv1) against its plain version at
-     the train shapes, with its time, the plain version's, the library
-     call's and its bound;
+     layer3 and layer4; 5: conv4x4_s2 fwd/dgrad/wgrad at D conv2..4, and
+     its forward at the seven Warper encoder shapes down1..out; 4:
+     conv4x4_patch fwd/dgrad/wgrad at D conv1; 6: upsample_warp fwd/dx/
+     d-flow at (1, 64, 128, 19) -> 512x1024 in bf16 and f32, on the
+     Warper's flow with clamped-edge and exact-boundary sample positions
+     added) against
+     its plain version at the train shapes, with its time, the plain
+     version's, the library call's and its bound;
   9. the bf16 multi-level train step at 512x1024 (the train slice's main
      path): launch counts zeroed before 10 timed steps and read after,
      checked against the per-step counts; finite losses, loss_seg2 ~ ln 19
      at step 0, parameters moved; ms/step by CUDA events, peak memory, and
      a profiler window (device-busy share, launches/step);
- 10. one multi-level step card vs CPU from the same weights, bf16 and f32;
+ 10. one step card vs CPU from the same weights, bf16 and f32: multi-level,
+     and source-only and single-level with a 7-layer Warper;
  11. the CLI: cli.train (bf16 multi-level, 3 steps, synthetic data) writes
-     GTA5_3.pth + _D1/_D2, then cli.evaluate loads GTA5_3.pth.
+     GTA5_3.pth + _D1/_D2, then cli.evaluate loads GTA5_3.pth; the same
+     with cli.train's default mode flags (source-only with the Warper), and
+     single-level with the Warper;
+ 12. the bf16 source-only Warper step at 512x1024 (the fork's default
+     mode), as phase 9: launch counts zeroed before 10 timed steps and
+     checked after (kernel 6: 1 fwd + 1 dx, no d-flow), loss_seg2 ~ ln 19
+     at step 0, G parameters and the Warper's BN statistics moved, its
+     weights unchanged; ms/step, peak memory, a profiler window; then 3
+     f32 steps of the same mode.
 Then a `{"kernels": [...]}` line, the nvidia-smi line, and the last line
 `{"ok": true, "device": {...}}`.
 
@@ -464,17 +479,32 @@ def phase_timings(models, results: dict, smi: str) -> dict:
 
 TRAIN_IN = (512, 1024)
 PARITY_IN = (128, 256)
-PEAK_BF16, PEAK_BYTES = 989e12, 3.35e12  # H100 SXM data sheet, dense bf16
-# Launches of each kernel direction in one multi-level step at iter_size 1:
-# kernel 2 on the 26 dilated 3x3s (layer3 23, layer4 3) per domain; kernel 5
-# on conv2..4 of the 6 D applications (2 in the G loss, 4 in the D losses),
-# wgrad only in the D losses; kernel 4 on conv1 of the 6 applications,
-# dgrad only in the G loss (the D losses detach the maps).
+PARITY_WARPER_LAYERS = 7  # 2^7 divides 128 and 256: the deepest that fits
+# H100 SXM data sheet: dense bf16 tensor cores, f32 on CUDA cores, HBM.
+PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
+# Launches of each kernel direction in one step at iter_size 1 (directions
+# not listed: 0).
+# multi-level: kernel 2 on the 26 dilated 3x3s (layer3 23, layer4 3) per
+# domain; kernel 5 on conv2..4 of the 6 D applications (2 in the G loss, 4
+# in the D losses), wgrad only in the D losses; kernel 4 on conv1 of the 6
+# applications, dgrad only in the G loss (the D losses detach the maps).
+# source-only with the Warper: kernel 2 on one domain; kernel 5 forward on
+# the 7 bf16 Warper encoder convs down1..out (no grad: the Warper runs under
+# no_grad); kernel 6 forward and dx once each, its d-flow never (the flow is
+# a constant of the loss).
 STEP_LAUNCHES = {
-    "conv3x3_dil_fwd": 52, "conv3x3_dil_dgrad": 52,
-    "conv4x4_s2_fwd": 18, "conv4x4_s2_dgrad": 18, "conv4x4_s2_wgrad": 12,
-    "conv4x4_patch_fwd": 6, "conv4x4_patch_dgrad": 2,
-    "conv4x4_patch_wgrad": 4,
+    "multi-level": {
+        "conv3x3_dil_fwd": 52, "conv3x3_dil_dgrad": 52,
+        "conv4x4_s2_fwd": 18, "conv4x4_s2_dgrad": 18, "conv4x4_s2_wgrad": 12,
+        "conv4x4_patch_fwd": 6, "conv4x4_patch_dgrad": 2,
+        "conv4x4_patch_wgrad": 4,
+    },
+    "source-only": {
+        "conv3x3_dil_fwd": 26, "conv3x3_dil_dgrad": 26, "conv4x4_s2_fwd": 7,
+        "upsample_warp_fwd": 1, "upsample_warp_dx": 1,
+    },
+    # f32 runs kernels 2 and 5 nowhere (bf16 only); kernel 6 takes both dtypes
+    "source-only/f32": {"upsample_warp_fwd": 1, "upsample_warp_dx": 1},
 }
 REPLACES = {
     "conv3x3_dil_fwd": "adaptsegnet_tpu/ops/pallas/conv3x3_dil.py:204",
@@ -485,7 +515,15 @@ REPLACES = {
     "conv4x4_patch_fwd": "adaptsegnet_tpu/ops/pallas/conv4x4_patch.py:184",
     "conv4x4_patch_dgrad": "adaptsegnet_tpu/ops/pallas/conv4x4_patch.py:295",
     "conv4x4_patch_wgrad": "adaptsegnet_tpu/ops/pallas/conv4x4_patch.py:233",
+    "upsample_warp_fwd": "adaptsegnet_tpu/ops/pallas/upsample_warp.py:432",
+    "upsample_warp_dx": "adaptsegnet_tpu/ops/pallas/upsample_warp.py:467",
+    "upsample_warp_dflow": "adaptsegnet_tpu/ops/pallas/upsample_warp.py:507",
 }
+# The Warper encoder's kernel-5 convs at 512x1024: (input H, W, Cin, Cout).
+WARPER_ENCODER = (("down1", (256, 512, 64, 128)), ("down2", (128, 256, 128, 256)),
+                  ("down3", (64, 128, 256, 512)), ("down4", (32, 64, 512, 512)),
+                  ("down5", (16, 32, 512, 512)), ("down6", (8, 16, 512, 512)),
+                  ("out", (4, 8, 512, 512)))
 
 
 def _bf16(rng, shape, scale=1.0):
@@ -498,8 +536,79 @@ def _nchw(t):
     return t.permute(0, 3, 1, 2)
 
 
+def warp_cases(rng, cases):
+    """Kernel 6 in its three directions at the train geometry, bf16 (the
+    main path's, under the names of REPLACES) and f32 (under '<name>/f32',
+    checked and printed, not in the kernels line). The flow is the one
+    the main path gives the kernel: an 8-layer bf16 Warper's at init on a
+    preprocessed image (smooth, |flow| < ~0.1), with 64 pixels clamped at
+    each corner and 64 at each exact boundary (iy = H-1, ix = 0). Library: F.interpolate
+    (align_corners=True) then F.grid_sample (align_corners=True) in the
+    same dtype, forward; for dx and d-flow its autograd backward alone (a
+    retained graph, gradient with respect to x, or to the grid; the grid is
+    cast to the input's dtype, as grid_sample requires). Operations
+    counted per output pixel and channel: 9 fmas (fwd, dx), 9 fmas + the
+    two 9-term sums (d-flow); f32 on CUDA cores."""
+    from adaptsegnet_tpu_torch.models import Warper
+    from adaptsegnet_tpu_torch.ops.kernels import upsample_warp as k6
+    from adaptsegnet_tpu_torch.ops.upsample_warp import coords_from_flow
+
+    n, (h, w), c, (oh, ow) = 1, (64, 128), 19, TRAIN_IN
+    p = oh * ow
+    warper = Warper(dtype=torch.bfloat16, device="cuda",
+                    generator=torch.Generator().manual_seed(SEED + 3))
+    with torch.no_grad():
+        flow = warper(torch.from_numpy(make_images(1, TRAIN_IN, SEED + 50))
+                      .cuda())[0].float()
+    del warper
+    flow[:, :, 0, :64] = 8.0    # clamped at the bottom / right edges
+    flow[:, :, 1, :64] = -8.0   # clamped at the top / left edges
+    iy, ix = coords_from_flow(flow, TRAIN_IN)
+    iy[:, 2, :64] = oh - 1.0
+    ix[:, 3, :64] = 0.0
+    iy, ix = iy.contiguous(), ix.contiguous()
+    grid = torch.stack([ix / (ow - 1) * 2 - 1, iy / (oh - 1) * 2 - 1], -1)
+    for dtype, suffix in ((torch.bfloat16, ""), (torch.float32, "/f32")):
+        es = 2 if dtype == torch.bfloat16 else 4
+        f32 = dtype == torch.float32
+        x = torch.from_numpy(rng.standard_normal((n, h, w, c)).astype(
+            np.float32)).to("cuda", dtype)
+        g = torch.from_numpy(rng.standard_normal((n, c, oh, ow)).astype(
+            np.float32)).to("cuda", dtype)
+        xn = x.permute(0, 3, 1, 2).contiguous()
+
+        def library(xin, gin):
+            up = F.interpolate(xin, TRAIN_IN, mode="bilinear", align_corners=True)
+            return F.grid_sample(up, gin.to(xin.dtype), mode="bilinear",
+                                 padding_mode="zeros", align_corners=True)
+
+        xr = xn.detach().requires_grad_(True)
+        lib_dx_out = library(xr, grid)
+        gr = grid.detach().requires_grad_(True)
+        lib_df_out = library(xn, gr)
+        coords, xb, gb = 8 * n * p, x.numel() * es, g.numel() * es
+        fma = 2 * 9 * n * p * c
+        cases["upsample_warp_fwd" + suffix].append((
+            "512x1024", lambda x=x: k6.upsample_warp_fwd(x, iy, ix),
+            lambda x=x: k6.upsample_warp_fwd_plain(x, iy, ix),
+            lambda xn=xn: library(xn, grid), fma, xb + coords + gb, f32))
+        cases["upsample_warp_dx" + suffix].append((
+            "512x1024", lambda g=g: k6.upsample_warp_dx(g, iy, ix, (h, w)),
+            lambda g=g: k6.upsample_warp_dx_plain(g, iy, ix, (h, w)),
+            lambda o=lib_dx_out, xr=xr, g=g: torch.autograd.grad(
+                o, xr, g, retain_graph=True),
+            fma, gb + coords + xb, f32))
+        cases["upsample_warp_dflow" + suffix].append((
+            "512x1024",
+            lambda x=x, g=g: torch.cat(k6.upsample_warp_dflow(x, g, iy, ix)),
+            lambda x=x, g=g: torch.cat(k6.upsample_warp_dflow_plain(x, g, iy, ix)),
+            lambda o=lib_df_out, gr=gr, g=g: torch.autograd.grad(
+                o, gr, g, retain_graph=True),
+            fma + 2 * 2 * 9 * n * p, xb + gb + 2 * coords, True))
+
+
 def kernel_cases(rng):
-    """Every direction of kernels 2, 5 and 4 at the train step's shapes:
+    """Every direction of kernels 2, 5, 4 and 6 at the train steps' shapes:
     {name: [(label, kernel fn, plain fn, library fn, flops, bytes, f32_out)]}.
     Each fn takes no argument; inputs are drawn here from `rng`."""
     from torch.nn.grad import conv2d_input, conv2d_weight
@@ -509,7 +618,9 @@ def kernel_cases(rng):
     from adaptsegnet_tpu_torch.ops.kernels import conv4x4_s2 as k5
 
     cl = torch.channels_last
-    cases = {name: [] for name in STEP_LAUNCHES}
+    cases = {name: [] for name in REPLACES}
+    cases.update({f"{name}/f32": [] for name in REPLACES
+                  if name.startswith("upsample_warp")})
     for label, c, d in (("layer3", 256, 2), ("layer4", 512, 4)):
         x = _bf16(rng, (1, 64, 128, c))
         dy = _bf16(rng, (1, 64, 128, c))
@@ -556,6 +667,16 @@ def kernel_cases(rng):
             lambda x=x, dy=dy, s=tuple(w.shape): conv2d_weight(
                 _nchw(x), s, _nchw(dy), 2, 1),
             flops, io + 2 * w.numel(), True))
+    for label, (h, wd, cin, cout) in WARPER_ENCODER:  # no bias (Batch norm)
+        x = _bf16(rng, (1, h, wd, cin))
+        w = _bf16(rng, (cout, cin, 4, 4), 0.02)
+        flops = 2 * (h // 2) * (wd // 2) * cout * 16 * cin
+        io = 2 * (x.numel() + (h // 2) * (wd // 2) * cout + w.numel())
+        cases["conv4x4_s2_fwd"].append((
+            f"warper {label}", lambda x=x, w=w: k5.conv4x4_s2_fwd(x, w, None),
+            lambda x=x, w=w: k5.conv4x4_s2_fwd_plain(x, w, None),
+            lambda x=x, w=w.contiguous(memory_format=cl): F.conv2d(
+                _nchw(x), w, None, 2, 1), flops, io, False))
     n, c, (h, wd) = 1, 19, TRAIN_IN
     x = torch.softmax(_bf16(rng, (n, c, h, wd), 2.0).float(), 1).to(torch.bfloat16)
     dy = _bf16(rng, (n, h // 2, wd // 2, 64))
@@ -577,6 +698,7 @@ def kernel_cases(rng):
         lambda: k4.conv4x4_patch_wgrad_plain(x, dy),
         lambda: conv2d_weight(x, tuple(w.shape), _nchw(dy), 2, 1),
         flops, io + 2 * w.numel(), True))
+    warp_cases(rng, cases)
     return cases
 
 
@@ -609,19 +731,21 @@ def phase_train_kernels(smi: str) -> dict:
     rng = np.random.default_rng(SEED + 10)
     rows = {}
     for name, cases in kernel_cases(rng).items():
+        kname = name.split("/")[0]
+        peak = PEAK_F32 if kname.startswith("upsample_warp") else PEAK_BF16
         tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, ops_ms=0.0,
                    bytes_ms=0.0, err=0.0)
         for label, kern, plain, lib, flops, nbytes, f32_out in cases:
-            before = KERNELS[name].launches
+            before = KERNELS[kname].launches
             got = kern()
             torch.cuda.synchronize()
-            check(KERNELS[name].launches == before + 1,
+            check(KERNELS[kname].launches == before + 1,
                   f"{name} did not count its launch")
             err, rel = compare_outputs(got, plain(), f32_out)
             ms = cuda_ms(kern, iters=20)
             plain_ms = cuda_ms(plain, iters=5)
             lib_ms = cuda_ms(lib, iters=20)
-            ops_ms, bytes_ms = flops / PEAK_BF16 * 1e3, nbytes / PEAK_BYTES * 1e3
+            ops_ms, bytes_ms = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
             print(f"phase 8: {name} {label}: max abs err {err:.3g} "
                   f"({rel:.2e} of max |plain|); kernel {ms * 1e3:.1f} us "
                   f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms * 1e3:.1f} "
@@ -632,6 +756,8 @@ def phase_train_kernels(smi: str) -> dict:
                          ("ops_ms", ops_ms), ("bytes_ms", bytes_ms)):
                 tot[k] += v
             tot["err"] = max(tot["err"], err)
+        if name not in REPLACES:
+            continue
         rows[name] = {
             "name": name, "route": "cuda",
             "source": "adaptsegnet_tpu_torch/csrc/" + name.rsplit("_", 1)[0] + ".cu",
@@ -660,28 +786,57 @@ def train_batch(hw, seed, device="cuda"):
     }
 
 
-def train_state(dtype: str, device, hw):
+def train_state(dtype: str, device, hw, mode: str = "multi-level",
+                warper_layers: int = 8):
+    """The state and step of one mode: 'multi-level' (no Warper),
+    'source-only' or 'single-level' (with the Warper), seed SEED."""
     from adaptsegnet_tpu_torch.train.build import build_train_state
     from adaptsegnet_tpu_torch.train.config import TrainConfig
-    from adaptsegnet_tpu_torch.train.steps import make_adversarial_step
+    from adaptsegnet_tpu_torch.train.steps import (
+        make_adversarial_step,
+        make_source_only_step,
+    )
 
-    cfg = TrainConfig(source_only=False, level="multi-level", warper=False,
-                      compute_dtype=dtype, restore_from="", random_seed=SEED)
+    cfg = TrainConfig(source_only=mode == "source-only",
+                      level="multi-level" if mode == "multi-level" else "single-level",
+                      warper=mode != "multi-level",
+                      warper_num_layers=warper_layers,
+                      input_size=f"{hw[1]},{hw[0]}", compute_dtype=dtype,
+                      restore_from="", random_seed=SEED)
     state = build_train_state(cfg, torch.device(device))
-    return state, make_adversarial_step(input_hw=hw)
+    if cfg.source_only:
+        return state, make_source_only_step(input_hw=hw)
+    return state, make_adversarial_step(level=cfg.level, input_hw=hw)
 
 
-def phase_train(smi: str, results: dict, warmup: int = 2, steps: int = 10) -> None:
-    """The bf16 multi-level step at 512x1024, bs 1, full DeeplabMulti plus
-    D1/D2 (the main path of this slice)."""
+def _bn_stats(warper) -> dict:
+    return {k: v.detach().clone() for k, v in warper.state_dict().items()
+            if k.endswith(("running_mean", "running_var"))}
+
+
+def phase_train(smi: str, results: dict, mode: str = "multi-level",
+                dtype: str = "bfloat16", warmup: int = 2, steps: int = 10) -> None:
+    """A train step at 512x1024, bs 1, full DeeplabMulti: bf16 multi-level
+    with D1/D2 (phase 9, the train slice's main path), or source-only with
+    the 8-layer Warper (phase 12, the fork's default mode, bf16 and f32).
+    The bf16 runs' launch counts go into the kernels line."""
     from adaptsegnet_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 
-    state, step = train_state("bfloat16", "cuda", TRAIN_IN)
+    phase = 9 if mode == "multi-level" else 12
+    expected = STEP_LAUNCHES[mode if dtype == "bfloat16" else f"{mode}/f32"]
+    state, step = train_state(dtype, "cuda", TRAIN_IN, mode)
     batches = [train_batch(TRAIN_IN, SEED + 20 + i) for i in range(3)]
     watch = {"G layer6": state.model.layer6.conv2d_list[0].weight,
-             "G layer3.0.conv2": state.model.layer3[0].conv2.weight,
-             "D1 conv1": state.d1.conv1.weight, "D2 conv3": state.d2.conv3.weight}
+             "G layer3.0.conv2": state.model.layer3[0].conv2.weight}
+    if state.d1 is not None:
+        watch["D1 conv1"] = state.d1.conv1.weight
+    if state.d2 is not None:
+        watch["D2 conv3"] = state.d2.conv3.weight
     before = {k: v.detach().clone() for k, v in watch.items()}
+    if state.warper is not None:
+        w_weights = {k: v.detach().clone() for k, v in
+                     state.warper.named_parameters()}
+        w_stats = _bn_stats(state.warper)
     t0 = time.perf_counter()
     first = step(state, batches[0])
     first = {k: float(v) for k, v in first.items()}
@@ -707,22 +862,37 @@ def phase_train(smi: str, results: dict, warmup: int = 2, steps: int = 10) -> No
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     last = {k: float(v) for k, v in metrics.items()}
     check(all(np.isfinite(v) for v in last.values()), f"losses {last}")
-    for name, per_step in STEP_LAUNCHES.items():
-        check(counts[name] == per_step * steps,
-              f"{name} launched {counts[name]} times in {steps} steps, "
-              f"expected {per_step * steps}")
-    results["train_launches"] = counts
+    for name, count in counts.items():
+        per_step = expected.get(name, 0)
+        check(count == per_step * steps,
+              f"{mode} {dtype}: {name} launched {count} times in {steps} "
+              f"steps, expected {per_step * steps}")
+    if dtype == "bfloat16":
+        results.setdefault("train_launches", {})[mode] = counts
     moved = {k: (v.detach() - before[k]).abs().max().item() for k, v in watch.items()}
     check(all(m > 0 for m in moved.values()), f"parameters did not move: {moved}")
-    print(f"phase 9: bf16 multi-level step {TRAIN_IN} bs1, full DeeplabMulti + "
-          f"D1/D2: {ms:.3f} ms/step (CUDA events, {steps} steps after {warmup} "
-          f"warm-up, {warm_s:.1f} s with first-call set-up), peak memory "
-          f"{peak_gb:.2f} GiB; step 0 losses {json.dumps(first)}; step "
-          f"{warmup + steps - 1} losses {json.dumps(last)}; kernel launches in "
-          f"{steps} steps {counts}; largest |delta| of watched params "
-          f"{json.dumps(moved)} [{smi}]")
-    print(f"phase 9: train step profile: "
-          f"{profile_eval(lambda: step(state, batches[0]), iters=3)}")
+    warper_note = ""
+    if state.warper is not None:
+        fixed = all(torch.equal(v, w_weights[k])
+                    for k, v in state.warper.named_parameters())
+        stats = _bn_stats(state.warper)
+        still = [k for k, v in stats.items() if torch.equal(v, w_stats[k])]
+        check(fixed, "the Warper's weights moved")
+        check(not still, f"Warper BN statistics did not move: {still[:4]}")
+        warper_note = (f"; Warper weights unchanged, all {len(stats)} BN "
+                       "running statistics moved")
+    name = ("multi-level step, full DeeplabMulti + D1/D2" if mode == "multi-level"
+            else "source-only Warper step, full DeeplabMulti + Warper (8 layers)")
+    print(f"phase {phase}: {dtype} {name} {TRAIN_IN} bs1: {ms:.3f} ms/step (CUDA "
+          f"events, {steps} steps after {warmup} warm-up, {warm_s:.1f} s with "
+          f"first-call set-up), peak memory {peak_gb:.2f} GiB; step 0 losses "
+          f"{json.dumps(first)}; step {warmup + steps - 1} losses "
+          f"{json.dumps(last)}; kernel launches in {steps} steps "
+          f"{ {k: v for k, v in counts.items() if v} }; largest |delta| of "
+          f"watched params {json.dumps(moved)}{warper_note} [{smi}]")
+    if dtype == "bfloat16":
+        print(f"phase {phase}: train step profile: "
+              f"{profile_eval(lambda: step(state, batches[0]), iters=3)}")
 
 
 def _flat_grads(modules):
@@ -732,52 +902,70 @@ def _flat_grads(modules):
 
 
 def phase_train_parity() -> None:
-    """One multi-level step on the card against the same step on the CPU
-    (plain versions) from the same weights and batch, at PARITY_IN: layer3/4
-    keep their widths, so kernel 2 is routed, and the D input is big enough
-    for kernels 4 and 5. BN statistics drawn checkpoint-like so that the
-    gradients are not vanishingly small. Tolerances: f32 (TF32 off) losses
-    within 1e-4 relative and each gradient vector within 1e-3 relative L2;
-    bf16 losses within 2e-2 relative and gradients within 2e-2 relative L2
+    """One step on the card against the same step on the CPU (plain
+    versions) from the same weights and batch, at PARITY_IN: multi-level,
+    and source-only and single-level with a Warper of PARITY_WARPER_LAYERS
+    (the deepest that 128x256 takes). layer3/4 keep their widths, so kernel
+    2 is routed, the D input is big enough for kernels 4 and 5, and the
+    Warper's encoder takes kernel 5. BN statistics drawn checkpoint-like
+    so that the gradients are not vanishingly small. Tolerances: f32 (TF32
+    off) losses within 1e-4 relative and each gradient vector (and the
+    Warper's BN statistics' update) within 1e-3 relative L2; bf16 losses
+    within 2e-2 relative and gradients within 2e-2 relative L2
     (activations are rounded to bf16 after every op on both sides, in
     different sum orders, through 101 layers)."""
-    for dtype, loss_tol, grad_tol in (("bfloat16", 2e-2, 2e-2),
-                                      ("float32", 1e-4, 1e-3)):
-        cpu, cpu_step = train_state(dtype, "cpu", PARITY_IN)
-        checkpoint_like_bn_(cpu.model, torch.Generator().manual_seed(SEED + 30))
-        card, card_step = train_state(dtype, "cuda", PARITY_IN)
-        card.load_state_dict(cpu.state_dict())
-        p0 = {k: v.detach().float().cpu().clone()
-              for k, v in cpu.model.state_dict().items()}
-        batch = train_batch(PARITY_IN, SEED + 40, device="cpu")
-        m_cpu = {k: float(v) for k, v in cpu_step(cpu, batch).items()}
-        m_card = {k: float(v) for k, v in card_step(
-            card, {k: v.cuda() for k, v in batch.items()}).items()}
-        loss_err = max(abs(m_card[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-6)
-                       for k in m_cpu)
-        errs = {}
-        for name, mods in (("G", [cpu.model, card.model]),
-                           ("D1", [cpu.d1, card.d1]), ("D2", [cpu.d2, card.d2])):
-            g_cpu, g_card = _flat_grads(mods[:1]), _flat_grads(mods[1:])
-            errs[name] = ((g_card - g_cpu).norm() / g_cpu.norm()).item()
-        d_cpu = torch.cat([(v.float() - p0[k]).flatten() for k, v in
-                           cpu.model.state_dict().items()])
-        d_card = torch.cat([(v.float().cpu() - p0[k]).flatten() for k, v in
-                            card.model.state_dict().items()])
-        errs["G delta"] = ((d_card - d_cpu).norm() / d_cpu.norm()).item()
-        check(loss_err <= loss_tol and max(errs.values()) <= grad_tol,
-              f"{dtype} card vs CPU step: losses {m_card} vs {m_cpu} (rel "
-              f"{loss_err:.3g}, need <= {loss_tol}); relative L2 {errs} "
-              f"(need <= {grad_tol})")
-        print(f"phase 10: {dtype} multi-level step card vs CPU {PARITY_IN}: "
-              f"largest relative loss error {loss_err:.3g} (<= {loss_tol}); "
-              f"relative L2 of grads and G update {json.dumps(errs)} (<= "
-              f"{grad_tol}); card losses {json.dumps(m_card)}")
+    for mode in ("multi-level", "source-only", "single-level"):
+        for dtype, loss_tol, grad_tol in (("bfloat16", 2e-2, 2e-2),
+                                          ("float32", 1e-4, 1e-3)):
+            layers = PARITY_WARPER_LAYERS
+            cpu, cpu_step = train_state(dtype, "cpu", PARITY_IN, mode, layers)
+            checkpoint_like_bn_(cpu.model, torch.Generator().manual_seed(SEED + 30))
+            card, card_step = train_state(dtype, "cuda", PARITY_IN, mode, layers)
+            card.load_state_dict(cpu.state_dict())
+            p0 = {k: v.detach().float().cpu().clone()
+                  for k, v in cpu.model.state_dict().items()}
+            s0 = _bn_stats(cpu.warper) if cpu.warper is not None else {}
+            batch = train_batch(PARITY_IN, SEED + 40, device="cpu")
+            m_cpu = {k: float(v) for k, v in cpu_step(cpu, batch).items()}
+            m_card = {k: float(v) for k, v in card_step(
+                card, {k: v.cuda() for k, v in batch.items()}).items()}
+            loss_err = max(abs(m_card[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-6)
+                           for k in m_cpu)
+            errs = {}
+            for label, name in (("G", "model"), ("D1", "d1"), ("D2", "d2")):
+                if getattr(cpu, name) is None:
+                    continue
+                g_cpu = _flat_grads([getattr(cpu, name)])
+                g_card = _flat_grads([getattr(card, name)])
+                errs[label] = ((g_card - g_cpu).norm() / g_cpu.norm()).item()
+            d_cpu = torch.cat([(v.float() - p0[k]).flatten() for k, v in
+                               cpu.model.state_dict().items()])
+            d_card = torch.cat([(v.float().cpu() - p0[k]).flatten() for k, v in
+                                card.model.state_dict().items()])
+            errs["G delta"] = ((d_card - d_cpu).norm() / d_cpu.norm()).item()
+            if s0:
+                w_cpu = torch.cat([(v - s0[k]).flatten()
+                                   for k, v in _bn_stats(cpu.warper).items()])
+                w_card = torch.cat([(v.cpu() - s0[k]).flatten()
+                                    for k, v in _bn_stats(card.warper).items()])
+                errs["Warper BN stats delta"] = (
+                    (w_card - w_cpu).norm() / w_cpu.norm()).item()
+            check(loss_err <= loss_tol and max(errs.values()) <= grad_tol,
+                  f"{mode} {dtype} card vs CPU step: losses {m_card} vs "
+                  f"{m_cpu} (rel {loss_err:.3g}, need <= {loss_tol}); relative "
+                  f"L2 {errs} (need <= {grad_tol})")
+            warper = f", Warper {layers} layers" if s0 else ""
+            print(f"phase 10: {dtype} {mode} step card vs CPU {PARITY_IN}{warper}: "
+                  f"largest relative loss error {loss_err:.3g} (<= {loss_tol}); "
+                  f"relative L2 {json.dumps(errs)} (<= {grad_tol}); card losses "
+                  f"{json.dumps(m_card)}")
 
 
 def phase_train_cli() -> None:
-    """cli.train (bf16, multi-level, no Warper) for 3 steps on synthetic
-    GTA5 / Cityscapes at 512x1024, then cli.evaluate on its snapshot."""
+    """cli.train for 3 steps on synthetic GTA5 / Cityscapes at 512x1024, bf16,
+    then cli.evaluate on its snapshot: multi-level without the Warper, the
+    default mode flags (source-only with the Warper), and single-level with
+    the Warper (the source flow reused for the target)."""
     from adaptsegnet_tpu_torch.data import lists
 
     root = os.path.join(WORK, "train_cli")
@@ -788,36 +976,48 @@ def phase_train_cli() -> None:
                                          size_wh=TRAIN_IN[::-1])
     val = lists.make_synthetic_cityscapes(os.path.join(root, "cs"), "val", n=2,
                                           size_wh=TRAIN_IN[::-1])
-    snap = os.path.join(root, "snap")
-    t0 = time.perf_counter()
-    for cmd in (
-        ["-m", "adaptsegnet_tpu_torch.cli.train", "--no-warper",
-         "--no-source-only", "--level", "multi-level", "--compute-dtype",
-         "bfloat16", "--data-dir", os.path.dirname(gta), "--data-list", gta,
-         "--data-dir-target", os.path.dirname(cs), "--data-list-target", cs,
-         "--input-size", size, "--input-size-target", size,
-         "--num-steps", "100", "--num-steps-stop", "3", "--restore-from", "",
-         "--snapshot-dir", snap, "--num-workers", "2"],
-        ["-m", "adaptsegnet_tpu_torch.cli.evaluate", "--data-dir",
-         os.path.dirname(val), "--data-list", val, "--restore-from",
-         os.path.join(snap, "multi_level", "GTA5_3.pth"), "--save",
-         os.path.join(root, "result")],
-    ):
-        proc = subprocess.run([sys.executable, *cmd], cwd=REPO,
-                              capture_output=True, text=True, timeout=600)
-        check(proc.returncode == 0,
-              f"{cmd[1]} exited {proc.returncode}:\n{proc.stderr[-4000:]}")
-        if cmd[1].endswith("train"):
-            lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("iter")]
-    files = sorted(os.listdir(os.path.join(snap, "multi_level")))
-    for f in ("GTA5_3.pth", "GTA5_3_D1.pth", "GTA5_3_D2.pth"):
-        check(f in files, f"cli.train wrote {files}, no {f}")
-    pngs = os.listdir(os.path.join(root, "result"))
-    check(len(pngs) == 4, f"cli.evaluate wrote {pngs}")
-    print(f"phase 11: cli.train bf16 multi-level 3 steps {TRAIN_IN} -> {files}; "
-          f"last loss line: {lines[-1] if lines else 'none'}; cli.evaluate on "
-          f"GTA5_3.pth -> {len(pngs)} PNGs ({time.perf_counter() - t0:.1f} s "
-          "with process start-up)")
+    common = ["--compute-dtype", "bfloat16", "--data-dir", os.path.dirname(gta),
+              "--data-list", gta, "--input-size", size, "--num-steps", "100",
+              "--num-steps-stop", "3", "--restore-from", "", "--num-workers", "2"]
+    target = ["--data-dir-target", os.path.dirname(cs), "--data-list-target",
+              cs, "--input-size-target", size]
+    modes = {
+        "multi_level": ["--no-warper", "--no-source-only", "--level",
+                        "multi-level", *target],
+        "source_only": [],  # the default mode: source-only with the Warper
+        "single_level": ["--no-source-only", "--level", "single-level", *target],
+    }
+    for sub, flags in modes.items():
+        snap = os.path.join(root, f"snap_{sub}")
+        result = os.path.join(root, f"result_{sub}")
+        t0 = time.perf_counter()
+        for cmd in (
+            ["-m", "adaptsegnet_tpu_torch.cli.train", *flags, *common,
+             "--snapshot-dir", snap],
+            ["-m", "adaptsegnet_tpu_torch.cli.evaluate", "--data-dir",
+             os.path.dirname(val), "--data-list", val, "--restore-from",
+             os.path.join(snap, sub, "GTA5_3.pth"), "--save", result],
+        ):
+            proc = subprocess.run([sys.executable, *cmd], cwd=REPO,
+                                  capture_output=True, text=True, timeout=600)
+            check(proc.returncode == 0,
+                  f"{cmd[1]} exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+            if cmd[1].endswith("train"):
+                lines = [ln for ln in proc.stdout.splitlines()
+                         if ln.startswith("iter")]
+        files = sorted(os.listdir(os.path.join(snap, sub)))
+        want = ["GTA5_3.pth"] + {"multi_level": ["GTA5_3_D1.pth", "GTA5_3_D2.pth"],
+                                 "single_level": ["GTA5_3_D2.pth"]}.get(sub, [])
+        for f in want:
+            check(f in files, f"cli.train wrote {files}, no {f}")
+        pngs = os.listdir(result)
+        check(len(pngs) == 4, f"cli.evaluate wrote {pngs}")
+        mode_flags = " ".join(flags[:3]) or "(default mode flags)"
+        print(f"phase 11: cli.train bf16 {sub} {mode_flags} "
+              f"3 steps {TRAIN_IN} -> {files}; last loss line: "
+              f"{lines[-1] if lines else 'none'}; cli.evaluate on GTA5_3.pth -> "
+              f"{len(pngs)} PNGs ({time.perf_counter() - t0:.1f} s with process "
+              "start-up)")
 
 
 def main() -> int:
@@ -860,14 +1060,16 @@ def main() -> int:
         del cpu_model, models
         torch.cuda.empty_cache()
         train_rows = phase_train_kernels(smi)
-        phase_train(smi, results)
+        phase_train(smi, results, "multi-level")
         phase_train_parity()
         phase_train_cli()
+        phase_train(smi, results, "source-only")
+        phase_train(smi, results, "source-only", dtype="float32", steps=3)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
-    for name, row in train_rows.items():
-        row["launches"] = results["train_launches"][name]
+    for name, row in train_rows.items():  # summed over both train paths' runs
+        row["launches"] = sum(c[name] for c in results["train_launches"].values())
     print(json.dumps({"kernels": [kernel, *train_rows.values()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

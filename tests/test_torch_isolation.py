@@ -18,6 +18,7 @@ from adaptsegnet_tpu_torch.models import (
     DeeplabMulti,
     FCDiscriminator,
     ResNetBackbone,
+    Warper,
 )
 
 PKG_DIR = pathlib.Path(adaptsegnet_tpu_torch.__file__).parent
@@ -87,7 +88,12 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch, tmp_path):
         cli_evaluate.main(["--restore-from", "unused.pth",
                            "--save", str(tmp_path / "out")])
     with pytest.raises(RuntimeError, match="no CUDA device"):
+        Warper()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         cli_train.main(["--no-warper", "--restore-from", "",
+                        "--snapshot-dir", str(tmp_path / "snap")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):  # default mode
+        cli_train.main(["--restore-from", "",
                         "--snapshot-dir", str(tmp_path / "snap")])
     assert next(ResNetBackbone(layers=(1, 1, 1, 1), device="cpu")
                 .parameters()).device.type == "cpu"

@@ -125,7 +125,7 @@ def test_config_defaults_match_jax():
 
 
 @pytest.mark.parametrize("argv", [
-    [],  # the default --warper with --source-only builds the Warper
+    ["--bn-mode", "batch"],  # the default mode (the Warper) + an unported flag
     ["--no-warper", "--bn-mode", "batch"],
     ["--no-warper", "--optim-dup-quirk"],
     ["--no-warper", "--source", "Synscapes"],
@@ -139,7 +139,8 @@ def test_unported_flags_raise(argv):
 
 
 def test_ported_modes_pass_the_check():
-    for argv in (["--no-warper"], ["--no-warper", "--no-source-only"],
+    for argv in ([], ["--no-source-only"],  # the Warper modes
+                 ["--no-warper"], ["--no-warper", "--no-source-only"],
                  ["--no-source-only", "--level", "multi-level"],
                  ["--no-warper", "--num-devices", "1"]):
         config.check_supported(config.parse_args(argv))
