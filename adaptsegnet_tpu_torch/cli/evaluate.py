@@ -4,8 +4,12 @@ inference on the CUDA card (`--cpu` for the CPU).
 Same flags as the JAX package's CLI (reference evaluate_cityscapes.py:62-93).
 Iterates snapshots (num_steps_stop / save_pred_every) or evaluates a single
 --restore-from checkpoint, writing raw-id + palette PNGs per image under
-<save>/<mode>/step<k>/. The forward runs in f32 with the exact tail, as in
-the JAX CLI.
+<save>/<mode>/step<k>/. `--model` picks DeeplabMulti (the main head of two),
+Oracle (DeeplabSingle) or DeeplabVGG (single-output; `--aspp-sum`, default
+'first2', for their released checkpoints). The forward runs in f32 with the
+exact tail, as in the JAX CLI (adaptsegnet_tpu/eval/evaluator.py:125), so it
+reaches neither the fused bf16 tail nor the batched bf16 3x3 kernel:
+`make_eval_fn(model, dtype=torch.bfloat16)` is their path.
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ import torch
 from adaptsegnet_tpu_torch.data import CityscapesDataset
 from adaptsegnet_tpu_torch.device import resolve_device
 from adaptsegnet_tpu_torch.eval.evaluator import Evaluator
-from adaptsegnet_tpu_torch.models import DeeplabMulti
+from adaptsegnet_tpu_torch.models import DeeplabMulti, DeeplabSingle, DeeplabVGG
 from adaptsegnet_tpu_torch.utils import pth_interop
 
 _INIT_SEED = 1338  # the JAX CLI's init key; absent checkpoint keys keep it
@@ -59,20 +63,23 @@ def get_arguments(argv=None):
     return p.parse_args(argv)
 
 
-def build_model(args, device: torch.device) -> DeeplabMulti:
-    if args.model in ("Oracle", "DeeplabVGG"):
-        raise NotImplementedError(
-            f"--model {args.model} is not ported yet: see ROADMAP.md, open "
-            "item 'VGG and Synscapes' (DeeplabVGG, DeeplabSingle/Oracle)")
-    if args.model != "DeeplabMulti":
+def build_model(args, device: torch.device):
+    """(model, output_index): DeeplabMulti's main head is output 1; the
+    single-output models return a bare map, which the eval fn does not
+    index (JAX cli/evaluate.py:62-79, 107-113)."""
+    generator = torch.Generator().manual_seed(_INIT_SEED)
+    if args.model == "DeeplabMulti":
+        if args.aspp_sum not in ("", "all"):
+            raise ValueError("DeeplabMulti sums all four ASPP branches; "
+                             f"--aspp-sum {args.aspp_sum} is not supported")
+        return DeeplabMulti(num_classes=args.num_classes, device=device,
+                            generator=generator), 1
+    single = {"Oracle": DeeplabSingle, "DeeplabVGG": DeeplabVGG}
+    if args.model not in single:
         raise NotImplementedError(args.model)
-    if args.aspp_sum not in ("", "all"):
-        raise ValueError("DeeplabMulti sums all four ASPP branches; "
-                         f"--aspp-sum {args.aspp_sum} is not supported")
-    return DeeplabMulti(
-        num_classes=args.num_classes, device=device,
-        generator=torch.Generator().manual_seed(_INIT_SEED),
-    )
+    return single[args.model](
+        num_classes=args.num_classes, aspp_sum=args.aspp_sum or "first2",
+        device=device, generator=generator), 0
 
 
 def _mode_subdir(args) -> str:
@@ -83,10 +90,10 @@ def _mode_subdir(args) -> str:
     ]
 
 
-def evaluate_checkpoint(args, model, ckpt_path, save_dir):
+def evaluate_checkpoint(args, model, output_index, ckpt_path, save_dir):
     pth_interop.load_into(model, pth_interop.load_torch_state_dict(ckpt_path))
     ow, oh = map(int, args.output_size.split(","))
-    evaluator = Evaluator(model, out_hw=(oh, ow), output_index=1,
+    evaluator = Evaluator(model, out_hw=(oh, ow), output_index=output_index,
                           save_dir=save_dir)
     w, h = map(int, args.input_size.split(","))
     ds = CityscapesDataset(args.data_dir, args.data_list, crop_size=(w, h),
@@ -102,7 +109,7 @@ def main(argv=None):
             "open item 'Scale-out' (torch.distributed)")
     device = resolve_device("cpu" if args.cpu else None)
     os.makedirs(args.save, exist_ok=True)
-    model = build_model(args, device)
+    model, output_index = build_model(args, device)
 
     if args.restore_from:
         ckpts = [(None, args.restore_from)]
@@ -124,7 +131,7 @@ def main(argv=None):
             continue
         sub = (osp.join(args.save, _mode_subdir(args), f"step{step}")
                if step is not None else args.save)
-        evaluate_checkpoint(args, model, path, sub)
+        evaluate_checkpoint(args, model, output_index, path, sub)
 
 
 if __name__ == "__main__":

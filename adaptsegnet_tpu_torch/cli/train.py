@@ -5,7 +5,9 @@ The JAX package's flag surface (reference train_gta2cityscapes_multi.py:
 72-156) with the mode constants as real flags (--source-only /
 --no-source-only, --level). With no flags it trains the fork's default
 mode: source-only with the Warper (Batch norm, 8 layers). Single-level with
-or without the Warper and multi-level are ported too.
+or without the Warper and multi-level run too, as do --bn-mode batch,
+--optim-dup-quirk, --model DeeplabVGG (single-level), --source Synscapes and
+--tensorboard; only more than one device still raises.
 """
 
 from __future__ import annotations

@@ -45,17 +45,23 @@ constexpr size_t kSmemBytes = (kSmemA + kSmemB) * sizeof(__nv_bfloat16);
 //   (N, sh, sw, cs) NHWC tensor (zero outside);
 //   written to (n, i*os + oy, j*os + ox) of an (N, oh_out, ow_out, ncols)
 //   NHWC tensor.
-// With zpar, blockIdx.z = 2*py + px selects a parity class: ry += py,
-// rx += px, oy = py, ox = px, and B advances by z * K * ncols.
+// With zpar, the low two bits of blockIdx.z = 2*py + px select a parity
+// class: ry += py, rx += px, oy = py, ox = px, and B advances by that class
+// times K * ncols.
+// With groups > 1 the batch is cut into `groups` runs of `n` images and the
+// remaining bits of blockIdx.z select the run: a tile's rows are pixels of
+// that run only (the last tile of every run is masked), so no tile straddles
+// two runs and a weight tile is reused across the run's images.
 struct Geo {
-  int n, oh, ow;          // output grid (rows of A = n * oh * ow)
+  int n, oh, ow;          // output grid (rows of A = n * oh * ow), per group
   int sh, sw, cs;         // source tensor
   int kw, taps;           // taps per kernel row, taps in all
   int rs, ry, rx;         // source base = (i * rs + ry, j * rs + rx)
   int tmul, tadd;         // tap offset = t{y,x} * tmul + tadd
   int os, oh_out, ow_out; // destination pixel = (i * os + oy, j * os + ox)
   int ncols;              // output channels (columns of B)
-  int zpar;               // 1: blockIdx.z is a parity class
+  int zpar;               // 1: blockIdx.z carries a parity class
+  int groups = 1;         // image groups of n images each, in blockIdx.z
 };
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
@@ -93,14 +99,18 @@ conv_igemm_kernel(const __nv_bfloat16* __restrict__ src,
 
   int ry = g.ry, rx = g.rx, oy = 0, ox = 0;
   const __nv_bfloat16* B = wmat;
+  int group = blockIdx.z;
   if (g.zpar) {
-    const int py = blockIdx.z >> 1, px = blockIdx.z & 1;
+    const int cls = blockIdx.z & 3;
+    const int py = cls >> 1, px = cls & 1;
+    group = blockIdx.z >> 2;
     ry += py;
     rx += px;
     oy = py;
     ox = px;
-    B += static_cast<size_t>(blockIdx.z) * K * g.ncols;
+    B += static_cast<size_t>(cls) * K * g.ncols;
   }
+  const int n_base = group * g.n;  // first image of this block's group
 
   // This thread's two A rows (fixed over the K loop) and vector slot.
   const int a_vec = tid & 3;  // 8 channels each
@@ -113,7 +123,7 @@ conv_igemm_kernel(const __nv_bfloat16* __restrict__ src,
     const int mm = a_ok[r] ? m : 0;
     const int j = mm % g.ow;
     const int t = mm / g.ow;
-    a_n[r] = t / g.oh;
+    a_n[r] = n_base + t / g.oh;
     a_y[r] = (t % g.oh) * g.rs + ry;
     a_x[r] = j * g.rs + rx;
   }
@@ -207,7 +217,7 @@ conv_igemm_kernel(const __nv_bfloat16* __restrict__ src,
       if (m < M && col < g.ncols) {
         const int jj = m % g.ow;
         const int t = m / g.ow;
-        const int nn = t / g.oh, ii = t % g.oh;
+        const int nn = n_base + t / g.oh, ii = t % g.oh;
         const size_t pix =
             (static_cast<size_t>(nn) * g.oh_out + ii * g.os + oy) * g.ow_out +
             jj * g.os + ox;
@@ -226,8 +236,8 @@ conv_igemm_kernel(const __nv_bfloat16* __restrict__ src,
   }
 }
 
-// Launch on `stream`; grid.z = 4 parity classes when g.zpar. Returns the
-// launch's cudaError_t (0 = success).
+// Launch on `stream`; grid.z = g.groups image groups times 4 parity classes
+// when g.zpar. Returns the launch's cudaError_t (0 = success).
 inline int launch(const void* src, const void* wmat, const void* bias,
                   void* out, const Geo& g, cudaStream_t stream) {
   static bool configured = false;  // the attribute is set once per process
@@ -240,7 +250,7 @@ inline int launch(const void* src, const void* wmat, const void* bias,
   }
   const int M = g.n * g.oh * g.ow;
   const dim3 grid((M + kBM - 1) / kBM, (g.ncols + kBN - 1) / kBN,
-                  g.zpar ? 4 : 1);
+                  (g.zpar ? 4 : 1) * g.groups);
   conv_igemm_kernel<<<grid, kThreads, kSmemBytes, stream>>>(
       static_cast<const __nv_bfloat16*>(src),
       static_cast<const __nv_bfloat16*>(wmat),

@@ -1,6 +1,6 @@
 """Host-side data: PIL decode with the reference's exact preprocessing, the
-GTA5 and Cityscapes datasets, the prefetching loader, devkit lists and
-synthetic fixtures."""
+GTA5, Synscapes and Cityscapes datasets, the prefetching loader, devkit
+lists and synthetic fixtures."""
 
 from adaptsegnet_tpu_torch.data.cityscapes import CityscapesDataset
 from adaptsegnet_tpu_torch.data.gta5 import GTA5Dataset
@@ -9,6 +9,7 @@ from adaptsegnet_tpu_torch.data.preprocessing import (
     IMG_MEAN_BGR,
     preprocess_image,
 )
+from adaptsegnet_tpu_torch.data.synscapes import SynscapesDataset
 
 __all__ = ["CityscapesDataset", "GTA5Dataset", "IMG_MEAN_BGR",
-           "PrefetchLoader", "preprocess_image"]
+           "PrefetchLoader", "SynscapesDataset", "preprocess_image"]

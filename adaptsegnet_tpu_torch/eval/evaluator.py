@@ -15,6 +15,12 @@ The tail (upsample + argmax) is chosen from the compute dtype:
     (N, 1024, 2048, 19) tensor. On a CPU tensor the kernel's wrapper runs
     its plain version.
   * bf16 with `use_kernel_tail=False` -> the plain bf16 tail.
+
+A bf16 batch of two images or more also sends the backbone's layer2..layer4
+3x3 convs to the hand-written batched kernel (ops/conv3x3.py, kernel 3);
+batch 1 and f32 keep cuDNN. The `Evaluator` computes in f32, as the JAX one
+does (adaptsegnet_tpu/eval/evaluator.py:125), so it reaches neither kernel:
+`make_eval_fn(model, dtype=torch.bfloat16)` is their path.
 """
 
 from __future__ import annotations
@@ -45,7 +51,8 @@ def make_eval_fn(
 ) -> Callable[[torch.Tensor], torch.Tensor]:
     """(images NHWC on the model's device) -> uint8 masks (N, H, W).
 
-    output_index selects pred2 of DeeplabMulti (reference :161-163).
+    output_index selects pred2 of DeeplabMulti (reference :161-163); a
+    single-output model (DeeplabSingle, DeeplabVGG) is not indexed.
     """
     return torch.inference_mode()(
         _make_mask_fn(model, out_hw, output_index, dtype, use_kernel_tail))

@@ -1,13 +1,18 @@
-"""Dilated ResNet-101 DeepLab-v2, multi-level (two ASPP heads).
+"""Dilated ResNet-101 DeepLab-v2: multi-level (two ASPP heads) and the
+single-head 'Oracle'.
 
 Counterpart of adaptsegnet_tpu/models/deeplab_resnet.py (`Bottleneck` :44,
-`ClassifierModule` :107, `ResNetBackbone` :162, `DeeplabMulti` :206):
+`ClassifierModule` :107, `ResNetBackbone` :162, `DeeplabMulti` :206,
+`DeeplabSingle` :233):
   * Bottleneck: stride on the 1x1 reduce conv, dilation on the 3x3
     (model/deeplab_multi.py:59-103); every conv+BN pair is BN-folded.
   * conv1 7x7/2 -> BN -> ReLU -> maxpool 3x3/2 (floor) -> layer1(3) ->
     layer2(4, /2) -> layer3(23, d2) -> layer4(3, d4); a projection shortcut
     on block 0 of every layer. Output stride 8.
-  * ASPP heads: layer5 on layer3's 1024 channels, layer6 on layer4's 2048.
+  * ASPP heads: layer5 on layer3's 1024 channels, layer6 on layer4's 2048
+    (DeeplabMulti); layer5 on layer4 after a ceil-mode pool (DeeplabSingle).
+  * `bn_mode`: 'frozen' (default) or 'batch', the reference's train-mode BN
+    with frozen affine (models/layers.py); same state-dict keys.
 
 Public tensors are NHWC, as in the JAX package: the model takes (N, H, W, 3)
 and returns raw stride-8 `(pred1, pred2)` logits (N, h, w, classes). Inside,
@@ -57,25 +62,31 @@ class Bottleneck(nn.Module):
             FrozenBatchNorm2d(planes * 4),
         ) if has_downsample else None
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        out = F.relu(conv_bn_folded(x, self.conv1, self.bn1, dtype))
-        out = F.relu(conv_bn_folded(out, self.conv2, self.bn2, dtype))
-        out = conv_bn_folded(out, self.conv3, self.bn3, dtype)
+    def forward(self, x: torch.Tensor, dtype: torch.dtype,
+                bn_mode: str = "frozen") -> torch.Tensor:
+        out = F.relu(conv_bn_folded(x, self.conv1, self.bn1, dtype, bn_mode))
+        out = F.relu(conv_bn_folded(out, self.conv2, self.bn2, dtype, bn_mode))
+        out = conv_bn_folded(out, self.conv3, self.bn3, dtype, bn_mode)
         residual = x
         if self.downsample is not None:
             residual = conv_bn_folded(x, self.downsample[0],
-                                      self.downsample[1], dtype)
+                                      self.downsample[1], dtype, bn_mode)
         return F.relu(out + residual)
 
 
 class ClassifierModule(nn.Module):
-    """ASPP head: the sum of all four dilated 3x3 convs (d = 6, 12, 18, 24)
-    down to `num_classes` maps, as DeeplabMulti sums them. (The reference's
-    'first2' early-return quirk belongs to the single-head variants, which
-    are not ported yet.)"""
+    """ASPP head: the sum of dilated 3x3 convs (d = 6, 12, 18, 24) down to
+    `num_classes` maps. `aspp_sum='all'` sums all four, as DeeplabMulti
+    does; 'first2' sums branches 0 and 1 only, the reference's early-return
+    quirk of the single-head and VGG variants (model/deeplab.py,
+    model/deeplab_vgg.py:19-21), kept for their released checkpoints. All
+    four branches hold parameters either way."""
 
-    def __init__(self, cin: int, num_classes: int):
+    def __init__(self, cin: int, num_classes: int, aspp_sum: str = "all"):
         super().__init__()
+        if aspp_sum not in ("all", "first2"):
+            raise ValueError(f"aspp_sum must be 'all' or 'first2': {aspp_sum!r}")
+        self.n_sum = len(_ASPP_DILATIONS) if aspp_sum == "all" else 2
         self.conv2d_list = nn.ModuleList(
             Conv2d(cin, num_classes, 3, padding=d, dilation=d, bias=True)
             for d in _ASPP_DILATIONS
@@ -87,6 +98,7 @@ class ClassifierModule(nn.Module):
             [c.weight for c in self.conv2d_list],
             [c.bias for c in self.conv2d_list],
             _ASPP_DILATIONS,
+            self.n_sum,
         )
 
 
@@ -96,7 +108,8 @@ class ResNetBackbone(nn.Module):
     `features` takes an NCHW view in channels_last memory and returns
     `{'layer1': ..., 'layer4': ...}` in the same form; `forward` is its NHWC
     face. `layers` sets the block count of each stage ((3, 4, 23, 3) is
-    ResNet-101; tests cut it). Weights are drawn with the reference's init
+    ResNet-101; tests cut it); `ceil_mode_pool` and `bn_mode` as in the
+    module note. Weights are drawn with the reference's init
     law from `generator` (default: a generator seeded with 0) and the module
     is placed on `device` (default: the CUDA card; raises if there is none).
     """
@@ -104,10 +117,12 @@ class ResNetBackbone(nn.Module):
     def __init__(self, layers: Sequence[int] = (3, 4, 23, 3),
                  dtype: torch.dtype = torch.float32,
                  device: str | torch.device | None = None,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 ceil_mode_pool: bool = False, bn_mode: str = "frozen"):
         device = resolve_device(device)
         super().__init__()
         self.dtype = dtype
+        self.ceil_mode_pool, self.bn_mode = ceil_mode_pool, bn_mode
         self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3)
         self.bn1 = FrozenBatchNorm2d(64)
         cin = 64
@@ -127,12 +142,13 @@ class ResNetBackbone(nn.Module):
         self.to(device)
 
     def features(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
-        x = F.relu(conv_bn_folded(x, self.conv1, self.bn1, self.dtype))
-        x = max_pool_3x3_s2(x)
+        x = F.relu(conv_bn_folded(x, self.conv1, self.bn1, self.dtype,
+                                  self.bn_mode))
+        x = max_pool_3x3_s2(x, self.ceil_mode_pool)
         feats = {}
         for li in range(1, 5):
             for block in getattr(self, f"layer{li}"):
-                x = block(x, self.dtype)
+                x = block(x, self.dtype, self.bn_mode)
             feats[f"layer{li}"] = x
         return feats
 
@@ -153,11 +169,12 @@ class DeeplabMulti(ResNetBackbone):
     def __init__(self, num_classes: int = 19,
                  dtype: torch.dtype = torch.float32,
                  device: str | torch.device | None = None,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 bn_mode: str = "frozen"):
         device = resolve_device(device)
         generator = _generator(generator)
         super().__init__(dtype=dtype, device="cpu",
-                         generator=generator)
+                         generator=generator, bn_mode=bn_mode)
         self.layer5 = ClassifierModule(1024, num_classes)
         self.layer6 = ClassifierModule(2048, num_classes)
         init_normal_(self.layer5, generator)
@@ -169,6 +186,34 @@ class DeeplabMulti(ResNetBackbone):
         pred1 = self.layer5(feats["layer3"], self.dtype)
         pred2 = self.layer6(feats["layer4"], self.dtype)
         return pred1.permute(0, 2, 3, 1), pred2.permute(0, 2, 3, 1)
+
+
+class DeeplabSingle(ResNetBackbone):
+    """Single-head 'Oracle' ResNet DeepLab (reference model/deeplab.py): one
+    ASPP head `layer5` on layer4, behind a ceil-mode pool, so at 512x1024
+    the logit map is 65x129, one pixel larger than DeeplabMulti's.
+
+    Returns the raw stride-8 logits, NHWC. `aspp_sum` defaults to 'first2'
+    for the released cityscapes_oracle checkpoint (trained with the
+    reference's early-return ASPP); 'all' is the intended head.
+    """
+
+    def __init__(self, num_classes: int = 19, aspp_sum: str = "first2",
+                 dtype: torch.dtype = torch.float32,
+                 device: str | torch.device | None = None,
+                 generator: torch.Generator | None = None,
+                 bn_mode: str = "frozen"):
+        device = resolve_device(device)
+        generator = _generator(generator)
+        super().__init__(dtype=dtype, device="cpu", generator=generator,
+                         ceil_mode_pool=True, bn_mode=bn_mode)
+        self.layer5 = ClassifierModule(2048, num_classes, aspp_sum)
+        init_normal_(self.layer5, generator)
+        self.to(device)
+
+    def forward(self, x_nhwc: torch.Tensor) -> torch.Tensor:
+        feats = self.features(_to_nchw_view(x_nhwc))
+        return self.layer5(feats["layer4"], self.dtype).permute(0, 2, 3, 1)
 
 
 def _generator(generator: torch.Generator | None) -> torch.Generator:

@@ -1,9 +1,12 @@
-"""Building blocks: frozen-BN folded convs, maxpool, the discriminator's
-init law and leaky ReLU, and the Warper's convs, init law and live BN.
+"""Building blocks: BN-folded convs (frozen BN, or train-mode BN with frozen
+affine), the maxpools, the discriminator's init law and leaky ReLU, and the
+Warper's convs, init law and live BN.
 
-Counterpart of adaptsegnet_tpu/models/layers.py with frozen BN
-(`bn_mode='frozen'`; train-mode BN, `--bn-mode batch`, is not ported yet)
-for the segmenter, and the Warper's parts: `xavier_normal_init` (:56), the
+Counterpart of adaptsegnet_tpu/models/layers.py: the segmenter's conv + BN
+in both `bn_mode`s ('frozen', the default, folds the running statistics
+into the weights; 'batch', `--bn-mode batch`, is the reference's train-mode
+BN, `_BNTrainFrozenAffine` :299-357), the 3x3/s2 pool in floor and ceil
+mode and VGG's 2x2 pool, and the Warper's parts: `xavier_normal_init` (:56), the
 4x4/s2/p1 routing of `Conv2d` (:96-137, here `conv2d`), `ConvTranspose2d`
 (:157, with ops/conv_transpose4x4.py's function) and the live BatchNorm of
 adaptsegnet_tpu/models/warper.py::_WarperBN (:87-100).
@@ -91,40 +94,90 @@ def init_torch_default_(module: nn.Module, generator: torch.Generator) -> None:
                         -bound, bound, generator=generator))
 
 
+BN_MOMENTUM = 0.1  # torch's convention: ra = (1 - m) * ra + m * batch
+
+
+def bn_train_frozen_affine(y: torch.Tensor, bn: FrozenBatchNorm2d) -> torch.Tensor:
+    """Train-mode BatchNorm with frozen affine on an NCHW conv output: the
+    reference's backbone BN under model.train() (JAX
+    `_BNTrainFrozenAffine`, models/layers.py:299-357).
+
+    Normalises by the batch statistics in f32 (mean, then the two-pass
+    biased variance E[(y - mean)^2]; E[y^2] - mean^2 cancels in f32 and the
+    error compounds over the backbone's ~100 BNs) and updates `bn`'s running
+    statistics in place with torch's momentum 0.1, the variance unbiased
+    (n / (n - 1)). Gradients flow through the batch statistics; the affine
+    and the running updates carry none. Rounded once to y's dtype."""
+    yf = y.float()
+    shape = (1, -1, 1, 1)
+    mean = yf.mean(dim=(0, 2, 3))
+    centred = yf - mean.view(shape)
+    var = centred.square().mean(dim=(0, 2, 3))
+    with torch.no_grad():
+        n = y.shape[0] * y.shape[2] * y.shape[3]
+        m = BN_MOMENTUM
+        bn.running_mean.copy_((1 - m) * bn.running_mean + m * mean)
+        bn.running_var.copy_((1 - m) * bn.running_var
+                             + m * var * (n / max(n - 1, 1)))
+    out = centred * torch.rsqrt(var + BN_EPS).view(shape)
+    out = (out * bn.weight.detach().float().view(shape)
+           + bn.bias.detach().float().view(shape))
+    return out.to(y.dtype)
+
+
 def conv_bn_folded(x: torch.Tensor, conv: Conv2d, bn: FrozenBatchNorm2d,
-                   dtype: torch.dtype) -> torch.Tensor:
+                   dtype: torch.dtype, bn_mode: str = "frozen") -> torch.Tensor:
     """conv(x) -> frozen BN, as conv(x, W * s) + (b - mean * s).
 
     s = scale / sqrt(var + eps). The fold runs in f32 and is cast to the
     compute dtype afterwards, and the folded bias is added in the compute
     dtype (adaptsegnet_tpu/models/layers.py:410-414, :458): folding in
-    bf16 would drift from the JAX package. While autograd records, stride-1
-    3x3 convs go through ops/conv3x3.py (kernel 2 forward and dgrad where
-    it applies); otherwise every conv is a cuDNN conv.
+    bf16 would drift from the JAX package. Stride-1 3x3 convs with
+    padding == dilation go through ops/conv3x3.py (kernel 2 forward and
+    dgrad while autograd records, kernel 3 for a batched bf16 forward
+    without autograd, where they apply); every other conv is a cuDNN conv.
+
+    `bn_mode='batch'` folds nothing (the normalisation depends on the conv
+    output's batch statistics): the raw conv through the same routing, then
+    `bn_train_frozen_affine` (JAX :395-400, :456-457). The state-dict keys
+    are the same in both modes.
     """
+    if bn_mode not in ("frozen", "batch"):
+        raise ValueError(f"bn_mode must be 'frozen' or 'batch': {bn_mode!r}")
+    if bn_mode == "batch":
+        w = conv.weight.to(dtype, memory_format=torch.channels_last)
+        return bn_train_frozen_affine(_conv(x.to(dtype), w, conv), bn)
     s = (bn.weight.float() * torch.rsqrt(bn.running_var.float() + BN_EPS)).detach()
     # channels_last weights: cuDNN would otherwise copy them to the
     # activations' layout on every call.
     w = (conv.weight.float() * s.view(-1, 1, 1, 1)).to(
         dtype, memory_format=torch.channels_last)
     b = (bn.bias.float() - bn.running_mean.float() * s).to(dtype).detach()
-    x = x.to(dtype)
+    return _conv(x.to(dtype), w, conv) + b.view(1, -1, 1, 1)
+
+
+def _conv(x: torch.Tensor, w: torch.Tensor, conv: Conv2d) -> torch.Tensor:
+    """The bias-free conv of `conv`'s geometry with the weights `w`."""
     if (w.shape[-1] == 3 and conv.stride == 1
-            and conv.padding == conv.dilation and torch.is_grad_enabled()
-            and (w.requires_grad or x.requires_grad)):
-        y = conv3x3_s1(x, w, conv.dilation)
-    else:
-        y = F.conv2d(x, w, None, conv.stride, conv.padding, conv.dilation)
-    return y + b.view(1, -1, 1, 1)
+            and conv.padding == conv.dilation):
+        return conv3x3_s1(x, w, conv.dilation)
+    return F.conv2d(x, w, None, conv.stride, conv.padding, conv.dilation)
 
 
-def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
-    """torch MaxPool2d(3, 2, padding=1): -inf padding, floor output size, as
-    DeeplabMulti pools (model/deeplab_multi.py:135). torch's backward routes
-    each window's gradient to its first maximum in row-major scan order,
-    the tie rule of the JAX custom VJP (adaptsegnet_tpu/models/layers.py:
-    488-560; held by tests/test_torch_train_layers.py)."""
-    return F.max_pool2d(x, 3, 2, 1)
+def max_pool_3x3_s2(x: torch.Tensor, ceil_mode: bool = False) -> torch.Tensor:
+    """torch MaxPool2d(3, 2, padding=1, ceil_mode): -inf padding; floor
+    output size as DeeplabMulti pools (model/deeplab_multi.py:135), ceil as
+    the single-head 'Oracle' ResNet does (model/deeplab.py:130). torch's
+    backward routes each window's gradient to its first maximum in
+    row-major scan order, the tie rule of the JAX custom VJP
+    (adaptsegnet_tpu/models/layers.py:461-560)."""
+    return F.max_pool2d(x, 3, 2, 1, ceil_mode=ceil_mode)
+
+
+def max_pool_2x2_s2(x: torch.Tensor) -> torch.Tensor:
+    """torch MaxPool2d(2, 2), VGG-16's pools (an odd trailing row or column
+    is dropped); the same tie rule (JAX :563-620)."""
+    return F.max_pool2d(x, 2, 2)
 
 
 def leaky_relu(x: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:

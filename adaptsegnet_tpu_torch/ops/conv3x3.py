@@ -1,4 +1,5 @@
-"""Stride-1 3x3 conv (padding = dilation) of the train path, with its backward.
+"""Stride-1 3x3 conv (padding = dilation): the train path's, with its
+backward, and the batched eval path's.
 
 Counterpart of adaptsegnet_tpu/ops/conv3x3.py::conv3x3_s1 (`:91-145`), a
 custom VJP there, a `torch.autograd.Function` here:
@@ -14,8 +15,13 @@ custom VJP there, a `torch.autograd.Function` here:
     values of the bf16 operands (TF32 allowed there, `precision.tf32_for`).
 Only directions autograd asks for run (`ctx.needs_input_grad`).
 
-models/layers.py takes this path only while autograd records; under
-`torch.no_grad()` (eval) the forward stays a cuDNN conv.
+Where autograd does not record (eval under `torch.no_grad()` or
+`torch.inference_mode()`), `conv3x3_s1` is a forward alone: kernel 3
+(`conv3x3_dil_batched_fwd`) for a bf16 batch of two images or more with
+d in {1, 2, 4} and channels multiples of 128, i.e. the layer2, layer3 and
+layer4 3x3s of a batched bf16 eval, the path the JAX package built
+`conv3x3_dil_mxu_batched` for (`:67-77`); cuDNN otherwise (batch 1, f32,
+layer1).
 """
 
 from __future__ import annotations
@@ -76,4 +82,11 @@ def conv3x3_s1(x: torch.Tensor, w: torch.Tensor, dilation: int) -> torch.Tensor:
 
     x: NCHW view in channels_last memory; w: OIHW (Cout, Cin, 3, 3) in the
     compute dtype. Returns NCHW in channels_last memory."""
-    return Conv3x3S1.apply(x, w, int(dilation))
+    d = int(dilation)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return Conv3x3S1.apply(x, w, d)
+    if conv3x3_dil.supported_batched(
+            (x.shape[0], x.shape[2], x.shape[3], x.shape[1]), w.shape[0], d,
+            x.dtype):
+        return _nchw(conv3x3_dil.conv3x3_dil_batched_fwd(_nhwc(x), w, d))
+    return F.conv2d(x, w.contiguous(memory_format=_CL), None, 1, d, d)

@@ -7,6 +7,7 @@ library each.
 """
 
 from adaptsegnet_tpu_torch.ops.kernels.conv3x3_dil import (
+    conv3x3_dil_batched_fwd,
     conv3x3_dil_dgrad,
     conv3x3_dil_fwd,
 )
@@ -32,7 +33,7 @@ from adaptsegnet_tpu_torch.ops.kernels.upsample_warp import (
 
 KERNELS = {fn.__name__: fn for fn in (
     upsample_argmax,
-    conv3x3_dil_fwd, conv3x3_dil_dgrad,
+    conv3x3_dil_fwd, conv3x3_dil_dgrad, conv3x3_dil_batched_fwd,
     conv4x4_s2_fwd, conv4x4_s2_dgrad, conv4x4_s2_wgrad,
     conv4x4_patch_fwd, conv4x4_patch_dgrad, conv4x4_patch_wgrad,
     upsample_warp_fwd, upsample_warp_dx, upsample_warp_dflow,
@@ -53,6 +54,7 @@ def launch_counts() -> dict[str, int]:
 __all__ = [
     "KERNELS",
     "LIBRARIES",
+    "conv3x3_dil_batched_fwd",
     "conv3x3_dil_dgrad",
     "conv3x3_dil_fwd",
     "conv4x4_patch_dgrad",

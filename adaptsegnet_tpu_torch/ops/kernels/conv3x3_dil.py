@@ -1,17 +1,22 @@
-"""Dilated 3x3 stride-1 convolution on bf16 tensor cores: kernel 2.
+"""Dilated 3x3 stride-1 convolution on bf16 tensor cores: kernels 2 and 3.
 
-Replaces the TPU kernel adaptsegnet_tpu/ops/pallas/conv3x3_dil.py
-(`conv3x3_dil_mxu`): conv3x3(x, w, stride 1, padding = dilation = d) on NHWC
-bf16 with f32 accumulation and one rounding to bf16. The CUDA source is
-csrc/conv3x3_dil.cu (an implicit GEMM, csrc/igemm_bf16.cuh); its note gives
-the design. ops/conv3x3.py routes the backbone's layer3 (d=2) and layer4
-(d=4) 3x3 convs here on the train path, forward and dgrad.
+Replaces the TPU kernels of adaptsegnet_tpu/ops/pallas/conv3x3_dil.py
+(`conv3x3_dil_mxu` and `conv3x3_dil_mxu_batched`): conv3x3(x, w, stride 1,
+padding = dilation = d) on NHWC bf16 with f32 accumulation and one rounding
+to bf16. The CUDA source is csrc/conv3x3_dil.cu (an implicit GEMM,
+csrc/igemm_bf16.cuh); its note gives the design. ops/conv3x3.py routes the
+backbone's layer3 (d=2) and layer4 (d=4) 3x3 convs to kernel 2 on the train
+path, forward and dgrad, and the layer2 (d=1), layer3 and layer4 3x3 convs
+of a bf16 batch of two images or more to kernel 3 where autograd does not
+record (batched eval).
 
-Two wrappers, each with its own launch count: `conv3x3_dil_fwd(x, w, d)`
-and `conv3x3_dil_dgrad(dy, w, d)`, the latter the same kernel on the
-spatially flipped, in/out-swapped weights. A CPU tensor takes the plain
-PyTorch version (`conv3x3_dil_plain`: f32 convolution of the bf16 values,
-exact products, one rounding); a CUDA tensor launches the kernel or raises.
+Three wrappers, each with its own launch count: `conv3x3_dil_fwd(x, w, d)`,
+`conv3x3_dil_dgrad(dy, w, d)`, the same kernel on the spatially flipped,
+in/out-swapped weights, and `conv3x3_dil_batched_fwd(x, w, d, nb)`, the
+forward with the batch cut into groups of `nb` images in the launch grid.
+A CPU tensor takes the plain PyTorch version (`conv3x3_dil_plain`: f32
+convolution of the bf16 values, exact products, one rounding); a CUDA tensor
+launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -47,16 +52,41 @@ def supported(x_shape, cout: int, d: int, dtype: torch.dtype) -> bool:
             and cout % 128 == 0)
 
 
+def pick_nb(n: int) -> int:
+    """Images per group of the batched forward: the largest of 8, 4, 2 that
+    divides the batch, else 1 (the JAX `_pick_nb`,
+    ops/pallas/conv3x3_dil.py:130, without its VMEM term)."""
+    for nb in (8, 4, 2):
+        if n % nb == 0:
+            return nb
+    return 1
+
+
+def supported_batched(x_shape, cout: int, d: int, dtype: torch.dtype) -> bool:
+    """The shapes the batched forward takes: bf16, d in {1, 2, 4}, channels
+    multiples of 128, a batch of two or more that 2, 4 or 8 divides (the JAX
+    gate, ops/pallas/conv3x3_dil.py:144-158, without its TPU row-blocking
+    terms)."""
+    n, cin = x_shape[0], x_shape[-1]
+    return (dtype == torch.bfloat16 and d in (1, 2, 4) and cin % 128 == 0
+            and cout % 128 == 0 and n >= 2 and pick_nb(n) > 1)
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = _build.load("conv3x3_dil")
     lib.asn_conv3x3_dil.argtypes = (
         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     lib.asn_conv3x3_dil.restype = ctypes.c_int
+    lib.asn_conv3x3_dil_batched.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    lib.asn_conv3x3_dil_batched.restype = ctypes.c_int
     return lib
 
 
-def _launch(x: torch.Tensor, w: torch.Tensor, d: int, what: str) -> torch.Tensor:
+def _launch(x: torch.Tensor, w: torch.Tensor, d: int, what: str,
+            nb: int | None = None) -> torch.Tensor:
+    """Launch the conv on (x, w); with `nb`, the batched entry point."""
     n, h, wd, cin = x.shape
     cout = w.shape[0]
     if tuple(w.shape) != (cout, cin, 3, 3) or cin % 32 or cout % 8:
@@ -65,9 +95,12 @@ def _launch(x: torch.Tensor, w: torch.Tensor, d: int, what: str) -> torch.Tensor
     wmat = w.permute(2, 3, 1, 0).reshape(9 * cin, cout).contiguous()
     _build.check_operands(what, x.device, x=x, w=wmat)
     out = torch.empty((n, h, wd, cout), dtype=x.dtype, device=x.device)
-    _build.raise_on(_library().asn_conv3x3_dil(
-        x.data_ptr(), wmat.data_ptr(), out.data_ptr(), n, h, wd, cin, cout,
-        int(d), _build.stream(x)), what)
+    ptrs = (x.data_ptr(), wmat.data_ptr(), out.data_ptr())
+    tail = (h, wd, cin, cout, int(d), _build.stream(x))
+    lib = _library()
+    err = (lib.asn_conv3x3_dil(*ptrs, n, *tail) if nb is None
+           else lib.asn_conv3x3_dil_batched(*ptrs, n, nb, *tail))
+    _build.raise_on(err, what)
     return out
 
 
@@ -91,5 +124,23 @@ def conv3x3_dil_dgrad(dy: torch.Tensor, w: torch.Tensor, d: int) -> torch.Tensor
     return out
 
 
+def conv3x3_dil_batched_fwd(x: torch.Tensor, w: torch.Tensor, d: int,
+                            nb: int | None = None) -> torch.Tensor:
+    """(N, H, W, Cin) NHWC with N >= 2, OIHW w -> (N, H, W, Cout): the
+    forward conv with `nb` images per group of the launch grid (`nb=None`:
+    `pick_nb(N)`). Forward only: the eval path's kernel."""
+    n = x.shape[0]
+    nb = pick_nb(n) if nb is None else int(nb)
+    if n < 2 or nb < 1 or n % nb:
+        raise ValueError(f"conv3x3_dil_batched_fwd: a batch of {n} in groups "
+                         f"of {nb}")
+    if not _build.on_cuda(x, "conv3x3_dil_batched_fwd"):
+        return conv3x3_dil_plain(x, w, d)
+    out = _launch(x, w, d, "conv3x3_dil_batched_fwd", nb)
+    conv3x3_dil_batched_fwd.launches += 1
+    return out
+
+
 conv3x3_dil_fwd.launches = 0
 conv3x3_dil_dgrad.launches = 0
+conv3x3_dil_batched_fwd.launches = 0

@@ -1,7 +1,9 @@
 """Construct the models and the train state from a TrainConfig.
 
 Counterpart of adaptsegnet_tpu/train/build.py (`build_train_state`
-:134-210): DeeplabMulti in the compute dtype, the reference's restore-from
+:134-210): DeeplabMulti (in either `--bn-mode`) or, for `--model
+DeeplabVGG`, the VGG segmenter behind the (pred1, pred2) contract
+(`_VGGAsMulti`, :42-58), in the compute dtype, the reference's restore-from
 surgery (reference train_gta2cityscapes_multi.py:202-215: `Scale.` /
 `module.` prefixes stripped, layer5 skipped when num_classes == 19, both
 heads with --not-restore-last), D1/D2 for the adversarial modes, and their
@@ -18,7 +20,12 @@ import sys
 
 import torch
 
-from adaptsegnet_tpu_torch.models import DeeplabMulti, FCDiscriminator, Warper
+from adaptsegnet_tpu_torch.models import (
+    DeeplabMulti,
+    DeeplabVGG,
+    FCDiscriminator,
+    Warper,
+)
 from adaptsegnet_tpu_torch.train.config import TrainConfig, check_supported
 from adaptsegnet_tpu_torch.train.optim import (
     make_discriminator_optimizer,
@@ -32,8 +39,36 @@ def _dtype_of(cfg: TrainConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
 
 
-def restore_generator(cfg: TrainConfig, model: DeeplabMulti) -> bool:
-    """Load --restore-from over the fresh weights; False when it is ''."""
+class _VGGAsMulti(DeeplabVGG):
+    """DeeplabVGG behind the (pred1, pred2) contract of the train steps: the
+    aux output aliases the main one. Single-level training, the only mode
+    the paper uses for VGG, never reads the aux output. The state-dict keys
+    stay DeeplabVGG's (the reference's)."""
+
+    def forward(self, x_nhwc: torch.Tensor):
+        out = super().forward(x_nhwc)
+        return out, out
+
+
+def build_generator(cfg: TrainConfig, generator: torch.Generator):
+    """The segmenter on the CPU with fresh weights. The VGG-16 backbone has
+    no BN, so --bn-mode does nothing there."""
+    dtype = _dtype_of(cfg)
+    if cfg.model == "DeepLab":
+        return DeeplabMulti(num_classes=cfg.num_classes, dtype=dtype,
+                            device="cpu", generator=generator,
+                            bn_mode=cfg.bn_mode)
+    if cfg.model == "DeeplabVGG":
+        return _VGGAsMulti(num_classes=cfg.num_classes, dtype=dtype,
+                           device="cpu", generator=generator)
+    raise NotImplementedError(f"model {cfg.model!r}")
+
+
+def restore_generator(cfg: TrainConfig, model: torch.nn.Module) -> bool:
+    """Load --restore-from over the fresh weights; False when it is ''. The
+    layer5 / --not-restore-last surgery applies to the ResNet checkpoints;
+    a VGG checkpoint (`features.*`, `classifier.*`) loads whole (JAX
+    :111-116)."""
     if not cfg.restore_from:
         return False
     if not osp.exists(cfg.restore_from):
@@ -43,10 +78,11 @@ def restore_generator(cfg: TrainConfig, model: DeeplabMulti) -> bool:
             "train from random init)")
     sd = pth_interop.load_torch_state_dict(cfg.restore_from)
     skip = set()
-    if cfg.num_classes == 19:
-        skip.add("layer5")
-    if cfg.not_restore_last:
-        skip.update(("layer5", "layer6"))
+    if cfg.model == "DeepLab":
+        if cfg.num_classes == 19:
+            skip.add("layer5")
+        if cfg.not_restore_last:
+            skip.update(("layer5", "layer6"))
     sd = {k: v for k, v in sd.items() if k.split(".")[0] not in skip}
     pth_interop.load_into(model, sd)
     print(f"restored {len(sd)}/{len(model.state_dict())} tensors from "
@@ -58,15 +94,14 @@ def build_train_state(cfg: TrainConfig, device: torch.device) -> TrainState:
     check_supported(cfg)
     dtype = _dtype_of(cfg)
     seed = cfg.random_seed
-    model = DeeplabMulti(num_classes=cfg.num_classes, dtype=dtype,
-                         device="cpu",
-                         generator=torch.Generator().manual_seed(seed))
+    model = build_generator(cfg, torch.Generator().manual_seed(seed))
     restore_generator(cfg, model)
     model.to(device)
     state = TrainState(
         model=model,
-        g_opt=make_generator_optimizer(model, cfg.learning_rate, cfg.momentum,
-                                       cfg.weight_decay),
+        g_opt=make_generator_optimizer(
+            model, cfg.learning_rate, cfg.momentum, cfg.weight_decay,
+            all_1x=cfg.model == "DeeplabVGG", dup_quirk=cfg.optim_dup_quirk),
         schedule=Schedule(cfg.learning_rate, cfg.learning_rate_D,
                           cfg.num_steps, cfg.power),
     )

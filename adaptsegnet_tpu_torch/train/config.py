@@ -2,12 +2,11 @@
 
 Counterpart of adaptsegnet_tpu/train/config.py (reference
 train_gta2cityscapes_multi.py:24-156): the same flags, names, types and
-defaults, parsed the same way. What the port does not run yet raises
-NotImplementedError from `check_supported` with a pointer to ROADMAP.md:
-`--bn-mode batch`, `--optim-dup-quirk`, `--source Synscapes`,
-`--model DeeplabVGG`, `--tensorboard`, and more than one device. Deviations from the JAX
-defaults: none; `--orbax-checkpoints` keeps its name for flag parity and
-saves the full state with torch.save (utils/checkpoint.py).
+defaults, parsed the same way. What the port does not run yet, more than
+one device, raises NotImplementedError from `check_supported` with a
+pointer to ROADMAP.md. Deviations from the JAX defaults: none;
+`--orbax-checkpoints` keeps its name for flag parity and saves the full
+state with torch.save (utils/checkpoint.py).
 """
 
 from __future__ import annotations
@@ -108,19 +107,10 @@ class TrainConfig:
 
 def check_supported(cfg: TrainConfig) -> None:
     """Raise NotImplementedError for what the port does not run yet."""
-    todo = {
-        "--bn-mode batch": cfg.bn_mode != "frozen",
-        "--optim-dup-quirk": cfg.optim_dup_quirk,
-        "--source Synscapes": cfg.source != "GTA5",
-        f"--model {cfg.model}": cfg.model != "DeepLab",
-        "--tensorboard": cfg.tensorboard,
-        f"--num-devices {cfg.num_devices}": cfg.num_devices not in (0, 1),
-    }
-    for flag, hit in todo.items():
-        if hit:
-            raise NotImplementedError(
-                f"{flag} is not ported yet: see ROADMAP.md, open items "
-                "(deferred train flags, scale-out)")
+    if cfg.num_devices not in (0, 1):
+        raise NotImplementedError(
+            f"--num-devices {cfg.num_devices} is not ported yet: see "
+            "ROADMAP.md, open item 'Scale-out' (torch.distributed)")
 
 
 def _add_bool_flag(parser, name, default, help_):

@@ -1,7 +1,8 @@
 """Training driver: config -> data -> step -> snapshots and logging.
 
 Counterpart of adaptsegnet_tpu/train/loop.py (`train` :120-269; reference
-train_gta2cityscapes_multi.py:180-729) on one device. Batches come from the
+train_gta2cityscapes_multi.py:180-729) on one device. The source domain is
+GTA5 or, with --source Synscapes, Synscapes. Batches come from the
 prefetching loader, collated to the step layout (iter_size, B, ...). The
 loss line of step i is printed after step i+1 is enqueued, so reading the
 metrics (a device sync) overlaps the next step. Snapshots keep the
@@ -27,6 +28,7 @@ from adaptsegnet_tpu_torch.data import (
     CityscapesDataset,
     GTA5Dataset,
     PrefetchLoader,
+    SynscapesDataset,
 )
 from adaptsegnet_tpu_torch.device import resolve_device
 from adaptsegnet_tpu_torch.train.build import build_train_state
@@ -66,9 +68,10 @@ def _loaders(cfg: TrainConfig, device: torch.device):
         img = np.stack([it[0] for it in items])
         return {"target_images": img.reshape(ishape + img.shape[1:])}
 
-    source = GTA5Dataset(cfg.data_dir, cfg.data_list, max_iters=max_iters,
-                         crop_size=cfg.crop_size_wh, scale=cfg.random_scale,
-                         mirror=cfg.random_mirror, seed=cfg.random_seed)
+    source_cls = {"GTA5": GTA5Dataset, "Synscapes": SynscapesDataset}[cfg.source]
+    source = source_cls(cfg.data_dir, cfg.data_list, max_iters=max_iters,
+                        crop_size=cfg.crop_size_wh, scale=cfg.random_scale,
+                        mirror=cfg.random_mirror, seed=cfg.random_seed)
     loaders = [PrefetchLoader(source, per_step, collate_source, device,
                               seed=cfg.random_seed,
                               num_workers=cfg.num_workers)]

@@ -27,6 +27,12 @@ upsample is then the fused upsample + warp (ops/upsample_warp.py, kernel
 flow also warps the target prediction (the fork's quirk, `:270-277`), and
 the discriminator reads softmax(dim=1) of the warped planar maps.
 
+A generator in `bn_mode='batch'` (--bn-mode batch) normalises by batch
+statistics and moves its BN running statistics in place on every forward,
+source then target, the reference's order (JAX :280-290 carries
+`batch_stats` through the same two forwards); they are buffers of the
+model, so the snapshots and the full-state resume hold them.
+
 A step takes `batch = {'images': (iter_size, B, H, W, 3), 'labels':
 (iter_size, B, H, W), 'target_images': (iter_size, B, H, W, 3)}` on the
 model's device, updates the state in place and returns the metrics under

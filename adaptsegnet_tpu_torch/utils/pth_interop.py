@@ -11,7 +11,9 @@ DataParallel `module.` and caffe `Scale.` prefixes are stripped, and
 `from_jax_variables` carries a flax `{'params', 'batch_stats'}` tree of
 numpy arrays across to the port's keys (HWIO -> OIHW, BN
 `scale`/`mean`/`var` -> `weight`/`running_mean`/`running_var`), for
-DeeplabMulti / ResNetBackbone trees, FCDiscriminator trees (`conv1`..`conv4`,
+DeeplabMulti / DeeplabSingle / ResNetBackbone trees, DeeplabVGG trees
+(`conv1_1`..`fc7` -> the reference's `features.<i>`, with or without the
+JAX train adapter's `vgg` level), FCDiscriminator trees (`conv1`..`conv4`,
 `classifier`) and Warper trees (`encoder_d`, `decoder_d`: transposed convs
 HWIO -> (Cin, Cout, 4, 4), the `spectral` collection's `u` vectors): the
 parity tests load identical weights into both packages with it.
@@ -82,16 +84,28 @@ def load_into(model: nn.Module, sd: Mapping[str, torch.Tensor]) -> list[str]:
 
 
 _DISC_CONVS = {"conv1", "conv2", "conv3", "conv4", "classifier"}
+# The JAX DeeplabVGG's conv names -> their index in the reference's pruned
+# `features` Sequential (adaptsegnet_tpu/utils/pth_interop.py:73).
+VGG_NAME_TO_IDX = {
+    "conv1_1": 0, "conv1_2": 2, "conv2_1": 5, "conv2_2": 7,
+    "conv3_1": 10, "conv3_2": 12, "conv3_3": 14,
+    "conv4_1": 17, "conv4_2": 19, "conv4_3": 21,
+    "conv5_1": 23, "conv5_2": 25, "conv5_3": 27,
+    "fc6": 29, "fc7": 31,
+}
 
 
 def _torch_key(path: tuple[str, ...]) -> str:
     """Flax path (without collection) -> the port's state-dict key."""
-    if path[0] == "backbone":
+    if path[0] in ("backbone", "vgg"):
         path = path[1:]
     head = path[0]
+    if head in VGG_NAME_TO_IDX:
+        leaf = "weight" if path[-1] == "kernel" else "bias"
+        return f"features.{VGG_NAME_TO_IDX[head]}.{leaf}"
     if head in _DISC_CONVS and path[1] == "conv" and len(path) == 3:
         return f"{head}.{'weight' if path[2] == 'kernel' else 'bias'}"
-    if head in ("layer5", "layer6"):
+    if head in ("layer5", "layer6", "classifier"):
         _, branch, _, leaf = path
         idx = int(branch.removeprefix("branch"))
         return f"{head}.conv2d_list.{idx}.{'weight' if leaf == 'kernel' else 'bias'}"
@@ -162,8 +176,8 @@ def _warper_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
 
 
 def from_jax_variables(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
-    """Flax DeeplabMulti / ResNetBackbone / FCDiscriminator / Warper
-    variables -> port state dict."""
+    """Flax DeeplabMulti / DeeplabSingle / ResNetBackbone / DeeplabVGG /
+    FCDiscriminator / Warper variables -> port state dict."""
     if "encoder_d" in variables.get("params", {}):
         return _warper_from_jax(variables)
     sd: dict[str, torch.Tensor] = {}

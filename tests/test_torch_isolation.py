@@ -16,6 +16,8 @@ from adaptsegnet_tpu_torch.cli import evaluate as cli_evaluate
 from adaptsegnet_tpu_torch.cli import train as cli_train
 from adaptsegnet_tpu_torch.models import (
     DeeplabMulti,
+    DeeplabSingle,
+    DeeplabVGG,
     FCDiscriminator,
     ResNetBackbone,
     Warper,
@@ -70,6 +72,49 @@ def test_no_forbidden_import_in_source(path):
     _assert_no_forbidden_import(path)
 
 
+def test_new_modules_are_covered():
+    """The modules of the single-head and VGG families, the Synscapes source
+    and the logger are among those the import and source checks walk."""
+    names = set(_module_names())
+    for mod in ("models.deeplab_vgg", "data.synscapes", "utils.logging",
+                "ops.conv3x3", "ops.kernels.conv3x3_dil", "train.optim"):
+        assert f"adaptsegnet_tpu_torch.{mod}" in names
+
+
+def test_cli_modes_import_no_jax(tmp_path):
+    """Building every model family and train-flag state through the CLIs'
+    build functions, in a process where importing jax, flax, optax or the JAX
+    package fails, leaves none of them loaded."""
+    code = "\n".join([
+        "import sys",
+        *[f"sys.modules[{name!r}] = None" for name in FORBIDDEN],
+        "import argparse, torch",
+        "from adaptsegnet_tpu_torch.cli import evaluate",
+        "from adaptsegnet_tpu_torch.train.build import build_train_state",
+        "from adaptsegnet_tpu_torch.train.config import parse_args",
+        "from adaptsegnet_tpu_torch.data import SynscapesDataset",
+        "from adaptsegnet_tpu_torch.utils.logging import ScalarLogger",
+        "cpu = torch.device('cpu')",
+        "for name in ('Oracle', 'DeeplabVGG'):",
+        "    evaluate.build_model(argparse.Namespace(model=name, "
+        "num_classes=19, aspp_sum=''), cpu)",
+        "for flags in (['--bn-mode', 'batch'], ['--optim-dup-quirk'], "
+        "['--model', 'DeeplabVGG', '--no-source-only'], "
+        "['--source', 'Synscapes', '--tensorboard']):",
+        "    build_train_state(parse_args(['--no-warper', '--restore-from', "
+        "'', *flags]), cpu)",
+        "ScalarLogger(None, False).close()",
+        "leaked = [m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r} and sys.modules[m] is not None]",
+        "assert not leaked, leaked",
+        "print('built')",
+    ])
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "built" in proc.stdout
+
+
 def test_chip_smoke_imports_no_jax():
     _assert_no_forbidden_import(REPO / "chip_smoke.py")
 
@@ -89,6 +134,19 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch, tmp_path):
                            "--save", str(tmp_path / "out")])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Warper()
+    for cls in (DeeplabSingle, DeeplabVGG):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cls()
+    for name in ("Oracle", "DeeplabVGG"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli_evaluate.main(["--model", name, "--restore-from", "unused.pth",
+                               "--save", str(tmp_path / "out")])
+    for flags in (["--bn-mode", "batch"], ["--optim-dup-quirk"],
+                  ["--source", "Synscapes"],
+                  ["--model", "DeeplabVGG", "--no-source-only"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli_train.main(["--no-warper", *flags, "--restore-from", "",
+                            "--snapshot-dir", str(tmp_path / "snap")])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli_train.main(["--no-warper", "--restore-from", "",
                         "--snapshot-dir", str(tmp_path / "snap")])

@@ -125,15 +125,16 @@ def test_config_defaults_match_jax():
 
 
 @pytest.mark.parametrize("argv", [
-    ["--bn-mode", "batch"],  # the default mode (the Warper) + an unported flag
-    ["--no-warper", "--bn-mode", "batch"],
-    ["--no-warper", "--optim-dup-quirk"],
-    ["--no-warper", "--source", "Synscapes"],
-    ["--no-warper", "--model", "DeeplabVGG"],
-    ["--no-warper", "--tensorboard"],
+    ["--num-devices", "4"],  # the default mode (the Warper)
     ["--no-warper", "--num-devices", "4"],
+    ["--no-warper", "--num-devices", "2"],
+    ["--no-warper", "--num-devices", "8", "--bn-mode", "batch"],
+    ["--no-warper", "--num-devices", "-1"],
+    ["--no-source-only", "--level", "multi-level", "--num-devices", "4"],
+    ["--model", "DeeplabVGG", "--no-source-only", "--num-devices", "2"],
 ])
 def test_unported_flags_raise(argv):
+    """Only more than one device still raises."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         config.check_supported(config.parse_args(argv))
 
@@ -142,5 +143,9 @@ def test_ported_modes_pass_the_check():
     for argv in ([], ["--no-source-only"],  # the Warper modes
                  ["--no-warper"], ["--no-warper", "--no-source-only"],
                  ["--no-source-only", "--level", "multi-level"],
-                 ["--no-warper", "--num-devices", "1"]):
+                 ["--no-warper", "--num-devices", "1"],
+                 ["--bn-mode", "batch"], ["--no-warper", "--optim-dup-quirk"],
+                 ["--no-warper", "--source", "Synscapes"],
+                 ["--model", "DeeplabVGG", "--no-source-only"],
+                 ["--no-warper", "--tensorboard"]):
         config.check_supported(config.parse_args(argv))
