@@ -9,31 +9,37 @@
 // per R-row VMEM block with the shifts sliced in VMEM, and
 // `conv3x3_dil_mxu_batched` (`_kernel_batched`), the same with NB images per
 // block. Its row slabs, halo rows and VMEM budget are not carried over. On
-// the card both are one
-// implicit GEMM (csrc/igemm_bf16.cuh): M = N*H*W pixels, N = Cout, K = 9*Cin,
-// the shifted source pixel loaded per tap with zero padding on load, so no
-// padded or shifted copy of the input ever reaches device memory.
+// the card both are one implicit GEMM: M = N*H*W pixels, N = Cout,
+// K = 9*Cin, the shifted source pixel loaded per tap with zero padding on
+// load, so no padded or shifted copy of the input ever reaches device
+// memory.
 //
-// Bound on the H100: layer3 is 9.66 GFLOP against ~9.6 MB of traffic per
-// call (~1,000 FLOP/byte), layer4 38.7 GFLOP: both are bound by the tensor
-// cores (989 TFLOP/s bf16 dense), so the design keeps the products on them
-// (wmma bf16 16x16x16, f32 accumulators) and hides the gathers behind a
-// three-stage cp.async pipeline.
+// Bound on the H100: layer3 is 9.66 GFLOP per image against ~9.6 MB of
+// traffic (~1,000 FLOP/byte), layer4 38.7 GFLOP: both are bound by the
+// tensor cores (989 TFLOP/s bf16 dense).
+// - Kernel 3 (the batched eval forward) runs on the Hopper core,
+//   csrc/igemm_sm90.cuh: wgmma from 128B-swizzled shared memory, the
+//   K-major weights by TMA, the gather by cp.async, a 5-stage mbarrier
+//   ring. The batch is flattened into M, so a 128-row tile may straddle two
+//   images and only the batch's last tile is masked.
+// - Kernel 2 (forward and dgrad on the train path) stays on the wmma core,
+//   csrc/igemm_bf16.cuh (16x16x16 fragments, three cp.async stages); its
+//   move to the Hopper core is queued.
 //
 // dgrad is the same call with the spatially flipped, in/out-swapped weights
 // (the wrapper builds them): for stride 1 and padding == dilation the
 // transpose of the conv is that conv.
 
 #include "igemm_bf16.cuh"
+#include "igemm_sm90.cuh"
 
 namespace {
 
-// The geometry of the stride-1 dilated 3x3 over `groups` runs of `n` images.
-igemm::Geo conv3x3_geo(int n, int groups, int h, int w, int cin, int cout,
-                       int d) {
-  igemm::Geo g;
+// The geometry of the stride-1 dilated 3x3 over n images, for either core.
+template <typename G>
+G conv3x3_geo(int n, int h, int w, int cin, int cout, int d) {
+  G g;
   g.n = n;
-  g.groups = groups;
   g.oh = h;
   g.ow = w;
   g.sh = h;
@@ -50,7 +56,6 @@ igemm::Geo conv3x3_geo(int n, int groups, int h, int w, int cin, int cout,
   g.oh_out = h;
   g.ow_out = w;
   g.ncols = cout;
-  g.zpar = 0;
   return g;
 }
 
@@ -61,23 +66,26 @@ igemm::Geo conv3x3_geo(int n, int groups, int h, int w, int cin, int cout,
 extern "C" int asn_conv3x3_dil(const void* x, const void* wmat, void* out,
                                int n, int h, int w, int cin, int cout, int d,
                                void* stream) {
-  return igemm::launch(x, wmat, nullptr, out,
-                       conv3x3_geo(n, 1, h, w, cin, cout, d),
+  return igemm::launch(x, wmat, out,
+                       conv3x3_geo<igemm::Geo>(n, h, w, cin, cout, d),
                        static_cast<cudaStream_t>(stream));
 }
 
 // The batched forward of the eval path (kernel 3): the same conv on n >= 2
-// images, nb images per group (n % nb == 0). blockIdx.z selects the group and
-// a tile's 128 rows are pixels of that group only (M per group = nb * h * w,
-// the last tile masked on load and on store when that is no multiple of 128,
-// as on the Oracle's 65 x 129 maps), so consecutive blocks of a group share
-// one weight tile through L2. Same operand layouts and constraints as above.
-extern "C" int asn_conv3x3_dil_batched(const void* x, const void* wmat,
-                                       void* out, int n, int nb, int h, int w,
+// images, the batch flattened into M. x: (n, h, w, cin) bf16; wt: (cout,
+// 9 * cin) bf16, K-major, column (ky*3 + kx)*cin + ci; out: (n, h, w, cout)
+// bf16. cin % 64 == 0, cout % 8 == 0.
+extern "C" int asn_conv3x3_dil_batched(const void* x, const void* wt,
+                                       void* out, int n, int h, int w,
                                        int cin, int cout, int d,
                                        void* stream) {
-  if (nb < 1 || n % nb != 0) return static_cast<int>(cudaErrorInvalidValue);
-  return igemm::launch(x, wmat, nullptr, out,
-                       conv3x3_geo(nb, n / nb, h, w, cin, cout, d),
-                       static_cast<cudaStream_t>(stream));
+  sm90::Geo g = conv3x3_geo<sm90::Geo>(n, h, w, cin, cout, d);
+  g.zpar = 0;
+  g.splits = 1;
+  g.per = 9 * cin / sm90::kBK;
+  // 128 x 256 tiles where Cout allows (layer3, layer4): each gathered A
+  // tile then feeds twice the columns, halving the gather's L2 traffic.
+  return sm90::launch(x, wt, nullptr, out, nullptr, g, 128,
+                      cout % 256 == 0 ? 256 : 128,
+                      static_cast<cudaStream_t>(stream));
 }

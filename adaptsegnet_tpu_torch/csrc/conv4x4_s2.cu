@@ -1,31 +1,41 @@
 // torch Conv2d(k=4, s=2, p=1) on NHWC bf16 with f32 accumulation: the
-// discriminator's conv2..conv4 (64->128, 128->256, 256->512), forward, dgrad
-// and wgrad.
+// discriminator's conv2..conv4 (64->128, 128->256, 256->512) and the
+// Warper encoder's down1..out (64->128 at 256x512 in ... 512->512 at 4x8
+// in), forward, dgrad and wgrad.
 //
 // Replaces the TPU kernel adaptsegnet_tpu/ops/pallas/conv4x4_s2.py
 // (`conv4x4_s2_mxu`: `_fwd_kernel`, `_wgrad_kernel`, `_dgrad_kernel`), which
 // builds the space-to-depth blocks in VMEM so that each direction is a few
 // MXU matmuls. On the card no space-to-depth is needed:
-//   fwd:   implicit GEMM (csrc/igemm_bf16.cuh), M = N*Ho*Wo, K = 16*Cin,
-//          N = Cout; input pixel (2i + ky - 1, 2j + kx - 1), zero padding on
-//          load; the f32 bias is added before the one rounding to bf16.
-//   dgrad: gather form. dx pixel (2p + py, 2q + px) takes the taps
-//          ky = 1 - py + 2a, kx = 1 - px + 2b (a, b in {0, 1}) from dy pixel
-//          (p + py - a, q + px - b): for each of the four parity classes an
-//          implicit GEMM with K = 4*Cout against that class's (4*Cout, Cin)
-//          weight matrix (built by the wrapper). Every dx element is written
-//          once by one thread: no atomics.
+//   fwd:   implicit GEMM on the Hopper core (csrc/igemm_sm90.cuh), M =
+//          N*Ho*Wo, K = 16*Cin, N = Cout; input pixel (2i + ky - 1,
+//          2j + kx - 1), zero padding on load; the f32 bias is added before
+//          the one rounding to bf16. Where the 128 x 128 tiles cannot fill
+//          the card (the encoder's down3..out, D conv4) the wrapper's plan
+//          cuts K into `splits` ranges and csrc/splitk.cuh sums the f32
+//          partials in split order, adds the bias and rounds once.
+//   dgrad: gather form on the same core. dx pixel (2p + py, 2q + px) takes
+//          the taps ky = 1 - py + 2a, kx = 1 - px + 2b (a, b in {0, 1}) from
+//          dy pixel (p + py - a, q + px - b): for each of the four parity
+//          classes (blockIdx.z) an implicit GEMM with K = 4*Cout against
+//          that class's K-major (Cin, 4*Cout) weight matrix (built by the
+//          wrapper). Every dx element is written once: no atomics.
 //   wgrad: dW[(ky, kx, ci), co] = sum over pixels of x(src) * dy, a GEMM of
-//          (16*Cin, Cout) reduced over M = N*Ho*Wo. The pixels are split into
-//          `splits` ranges, one f32 partial each (split-K), and a second pass
-//          sums the partials in split order: deterministic, f32 out.
+//          (16*Cin, Cout) reduced over M = N*Ho*Wo on wmma fragments
+//          (csrc/igemm_bf16.cuh's cp.async helpers). The pixels are split
+//          into `splits` ranges, one f32 partial each (split-K), and a
+//          second pass sums the partials in split order: deterministic, f32
+//          out.
 //
-// Bound on the H100: each direction of each conv is 8.59 GFLOP at bs 1 on
-// 512x1024 softmax maps against a few MB of traffic, i.e. tensor-core bound
-// (989 TFLOP/s bf16 dense); the design keeps all three directions on wmma
-// bf16 fragments with f32 accumulators.
+// Bound on the H100: at D conv2..4 and the encoder's down1..3 each
+// direction is 8.59 GFLOP against a few MB of traffic, i.e. tensor-core
+// bound (989 TFLOP/s bf16 dense); at down4..out (output 16x32 .. 2x4,
+// K = 8,192) the 8.4 MB weight read bounds the call (2.5-4.3 us), which
+// is why the forward splits K there: 4-16 output tiles become >= 132
+// blocks that each read a slice of the weights once.
 
 #include "igemm_bf16.cuh"
+#include "igemm_sm90.cuh"
 #include "splitk.cuh"
 
 namespace {
@@ -142,12 +152,16 @@ wgrad_kernel(const __nv_bfloat16* __restrict__ x,
 
 }  // namespace
 
-// x: (n, h, w, cin) bf16; wmat: (16 * cin, cout) bf16, row (ky*4 + kx)*cin +
-// ci; bias: (cout,) f32 or null; out: (n, h/2, w/2, cout) bf16.
-extern "C" int asn_conv4x4_s2_fwd(const void* x, const void* wmat,
-                                  const void* bias, void* out, int n, int h,
-                                  int w, int cin, int cout, void* stream) {
-  igemm::Geo g;
+// x: (n, h, w, cin) bf16; wt: (cout, 16 * cin) bf16, K-major, column
+// (ky*4 + kx)*cin + ci; bias: (cout,) f32 or null; out: (n, h/2, w/2, cout)
+// bf16; bm (128, or 64 for tiny M), splits and per (K steps of 64 per
+// split) from the wrapper's plan; ws: (splits, n*h/2*w/2, cout) f32 when
+// splits > 1, else null. cin % 64 == 0, cout % 8 == 0.
+extern "C" int asn_conv4x4_s2_fwd(const void* x, const void* wt,
+                                  const void* bias, void* out, void* ws,
+                                  int n, int h, int w, int cin, int cout,
+                                  int bm, int splits, int per, void* stream) {
+  sm90::Geo g;
   g.n = n;
   g.oh = h / 2;
   g.ow = w / 2;
@@ -166,17 +180,24 @@ extern "C" int asn_conv4x4_s2_fwd(const void* x, const void* wmat,
   g.ow_out = w / 2;
   g.ncols = cout;
   g.zpar = 0;
-  return igemm::launch(x, wmat, bias, out, g,
-                       static_cast<cudaStream_t>(stream));
+  g.splits = splits;
+  g.per = per;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int err = sm90::launch(x, wt, bias, out, ws, g, bm, 128, s);
+  if (err || splits == 1) return err;
+  return splitk::sum_splits_bf16(
+      static_cast<const float*>(ws), static_cast<const float*>(bias),
+      static_cast<__nv_bfloat16*>(out), splits,
+      static_cast<long long>(n) * (h / 2) * (w / 2) * cout, cout, s);
 }
 
-// dy: (n, h/2, w/2, cout) bf16; wcls: (4, 4 * cout, cin) bf16, class
-// z = 2*py + px, row (2a + b)*cout + co holding W[co, ci, 1-py+2a, 1-px+2b];
-// dx: (n, h, w, cin) bf16.
-extern "C" int asn_conv4x4_s2_dgrad(const void* dy, const void* wcls,
-                                    void* dx, int n, int h, int w, int cin,
-                                    int cout, void* stream) {
-  igemm::Geo g;
+// dy: (n, h/2, w/2, cout) bf16; wt: (4, cin, 4 * cout) bf16, class
+// z = 2*py + px, K-major row ci, column (2a + b)*cout + co holding
+// W[co, ci, 1-py+2a, 1-px+2b]; dx: (n, h, w, cin) bf16.
+extern "C" int asn_conv4x4_s2_dgrad(const void* dy, const void* wt, void* dx,
+                                    int n, int h, int w, int cin, int cout,
+                                    void* stream) {
+  sm90::Geo g;
   g.n = n;
   g.oh = h / 2;
   g.ow = w / 2;
@@ -195,8 +216,10 @@ extern "C" int asn_conv4x4_s2_dgrad(const void* dy, const void* wcls,
   g.ow_out = w;
   g.ncols = cin;
   g.zpar = 1;
-  return igemm::launch(dy, wcls, nullptr, dx, g,
-                       static_cast<cudaStream_t>(stream));
+  g.splits = 1;
+  g.per = 4 * cout / sm90::kBK;
+  return sm90::launch(dy, wt, nullptr, dx, nullptr, g, 128, 128,
+                      static_cast<cudaStream_t>(stream));
 }
 
 // x: (n, h, w, cin) bf16; dy: (n, h/2, w/2, cout) bf16; ws: (splits, 16*cin,

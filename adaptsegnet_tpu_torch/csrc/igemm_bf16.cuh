@@ -1,6 +1,7 @@
 // Implicit-GEMM convolution core on bf16 tensor cores (nvcuda::wmma 16x16x16,
-// f32 accumulators), shared by csrc/conv3x3_dil.cu (kernel 2) and
-// csrc/conv4x4_s2.cu (kernel 5).
+// f32 accumulators): kernel 2's forward and dgrad (csrc/conv3x3_dil.cu).
+// Kernels 3 and 5 run on the Hopper core, csrc/igemm_sm90.cuh; kernel 5's
+// wgrad uses this file's cp.async helpers.
 //
 // Output rows are pixels, columns output channels: out[M, Ncols] =
 // A[M, K] @ B[K, Ncols], where B is the weight matrix (K = taps * Cs rows,
@@ -8,13 +9,11 @@
 // one source pixel per tap, read straight from the NHWC source with zero
 // padding applied on load (cp.async with a zero source size). The geometry
 // (`Geo`) maps an output-grid pixel (n, i, j) and a tap (ty, tx) to its source
-// pixel and to the pixel it is written to; one struct covers the stride-1
-// dilated 3x3, the 4x4/s2 forward and the 4x4/s2 dgrad's parity classes.
+// pixel and to the pixel it is written to.
 //
 // Block tile 128 x 128, K step 32, three cp.async stages; 8 warps, each a
 // 32 x 64 tile (2 x 4 fragments). The epilogue converts each fragment through
-// a per-warp 16x16 f32 scratch and writes 16-byte bf16 vectors (optional f32
-// bias added before the one rounding).
+// a per-warp 16x16 f32 scratch and writes 16-byte bf16 vectors.
 
 #pragma once
 
@@ -45,23 +44,14 @@ constexpr size_t kSmemBytes = (kSmemA + kSmemB) * sizeof(__nv_bfloat16);
 //   (N, sh, sw, cs) NHWC tensor (zero outside);
 //   written to (n, i*os + oy, j*os + ox) of an (N, oh_out, ow_out, ncols)
 //   NHWC tensor.
-// With zpar, the low two bits of blockIdx.z = 2*py + px select a parity
-// class: ry += py, rx += px, oy = py, ox = px, and B advances by that class
-// times K * ncols.
-// With groups > 1 the batch is cut into `groups` runs of `n` images and the
-// remaining bits of blockIdx.z select the run: a tile's rows are pixels of
-// that run only (the last tile of every run is masked), so no tile straddles
-// two runs and a weight tile is reused across the run's images.
 struct Geo {
-  int n, oh, ow;          // output grid (rows of A = n * oh * ow), per group
+  int n, oh, ow;          // output grid (rows of A = n * oh * ow)
   int sh, sw, cs;         // source tensor
   int kw, taps;           // taps per kernel row, taps in all
   int rs, ry, rx;         // source base = (i * rs + ry, j * rs + rx)
   int tmul, tadd;         // tap offset = t{y,x} * tmul + tadd
   int os, oh_out, ow_out; // destination pixel = (i * os + oy, j * os + ox)
   int ncols;              // output channels (columns of B)
-  int zpar;               // 1: blockIdx.z carries a parity class
-  int groups = 1;         // image groups of n images each, in blockIdx.z
 };
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
@@ -82,7 +72,6 @@ __device__ __forceinline__ void cp_async_wait() {
 __global__ void __launch_bounds__(kThreads)
 conv_igemm_kernel(const __nv_bfloat16* __restrict__ src,
                   const __nv_bfloat16* __restrict__ wmat,
-                  const float* __restrict__ bias,
                   __nv_bfloat16* __restrict__ out, Geo g) {
   using namespace nvcuda;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -97,20 +86,7 @@ conv_igemm_kernel(const __nv_bfloat16* __restrict__ src,
   const int K = g.taps * g.cs;
   const int KT = K / kBK;
 
-  int ry = g.ry, rx = g.rx, oy = 0, ox = 0;
   const __nv_bfloat16* B = wmat;
-  int group = blockIdx.z;
-  if (g.zpar) {
-    const int cls = blockIdx.z & 3;
-    const int py = cls >> 1, px = cls & 1;
-    group = blockIdx.z >> 2;
-    ry += py;
-    rx += px;
-    oy = py;
-    ox = px;
-    B += static_cast<size_t>(cls) * K * g.ncols;
-  }
-  const int n_base = group * g.n;  // first image of this block's group
 
   // This thread's two A rows (fixed over the K loop) and vector slot.
   const int a_vec = tid & 3;  // 8 channels each
@@ -123,9 +99,9 @@ conv_igemm_kernel(const __nv_bfloat16* __restrict__ src,
     const int mm = a_ok[r] ? m : 0;
     const int j = mm % g.ow;
     const int t = mm / g.ow;
-    a_n[r] = n_base + t / g.oh;
-    a_y[r] = (t % g.oh) * g.rs + ry;
-    a_x[r] = j * g.rs + rx;
+    a_n[r] = t / g.oh;
+    a_y[r] = (t % g.oh) * g.rs + g.ry;
+    a_x[r] = j * g.rs + g.rx;
   }
   const int b_row = tid >> 4, b_vec = tid & 15;  // rows b_row, b_row + 16
 
@@ -217,17 +193,14 @@ conv_igemm_kernel(const __nv_bfloat16* __restrict__ src,
       if (m < M && col < g.ncols) {
         const int jj = m % g.ow;
         const int t = m / g.ow;
-        const int nn = n_base + t / g.oh, ii = t % g.oh;
+        const int nn = t / g.oh, ii = t % g.oh;
         const size_t pix =
-            (static_cast<size_t>(nn) * g.oh_out + ii * g.os + oy) * g.ow_out +
-            jj * g.os + ox;
+            (static_cast<size_t>(nn) * g.oh_out + ii * g.os) * g.ow_out +
+            jj * g.os;
         __align__(16) __nv_bfloat16 v[8];
 #pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          float f = scratch[lr * 16 + lc + e];
-          if (bias != nullptr) f += bias[col + e];
-          v[e] = __float2bfloat16_rn(f);
-        }
+        for (int e = 0; e < 8; ++e)
+          v[e] = __float2bfloat16_rn(scratch[lr * 16 + lc + e]);
         *reinterpret_cast<uint4*>(out + pix * g.ncols + col) =
             *reinterpret_cast<const uint4*>(v);
       }
@@ -236,10 +209,9 @@ conv_igemm_kernel(const __nv_bfloat16* __restrict__ src,
   }
 }
 
-// Launch on `stream`; grid.z = g.groups image groups times 4 parity classes
-// when g.zpar. Returns the launch's cudaError_t (0 = success).
-inline int launch(const void* src, const void* wmat, const void* bias,
-                  void* out, const Geo& g, cudaStream_t stream) {
+// Launch on `stream`. Returns the launch's cudaError_t (0 = success).
+inline int launch(const void* src, const void* wmat, void* out, const Geo& g,
+                  cudaStream_t stream) {
   static bool configured = false;  // the attribute is set once per process
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -249,12 +221,11 @@ inline int launch(const void* src, const void* wmat, const void* bias,
     configured = true;
   }
   const int M = g.n * g.oh * g.ow;
-  const dim3 grid((M + kBM - 1) / kBM, (g.ncols + kBN - 1) / kBN,
-                  (g.zpar ? 4 : 1) * g.groups);
+  const dim3 grid((M + kBM - 1) / kBM, (g.ncols + kBN - 1) / kBN);
   conv_igemm_kernel<<<grid, kThreads, kSmemBytes, stream>>>(
       static_cast<const __nv_bfloat16*>(src),
       static_cast<const __nv_bfloat16*>(wmat),
-      static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(out), g);
+      static_cast<__nv_bfloat16*>(out), g);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -3,8 +3,9 @@
 Replaces the TPU kernels of adaptsegnet_tpu/ops/pallas/conv3x3_dil.py
 (`conv3x3_dil_mxu` and `conv3x3_dil_mxu_batched`): conv3x3(x, w, stride 1,
 padding = dilation = d) on NHWC bf16 with f32 accumulation and one rounding
-to bf16. The CUDA source is csrc/conv3x3_dil.cu (an implicit GEMM,
-csrc/igemm_bf16.cuh); its note gives the design. ops/conv3x3.py routes the
+to bf16. The CUDA source is csrc/conv3x3_dil.cu (an implicit GEMM: kernel 2
+on csrc/igemm_bf16.cuh, kernel 3 on the Hopper core csrc/igemm_sm90.cuh);
+its note gives the design. ops/conv3x3.py routes the
 backbone's layer3 (d=2) and layer4 (d=4) 3x3 convs to kernel 2 on the train
 path, forward and dgrad, and the layer2 (d=1), layer3 and layer4 3x3 convs
 of a bf16 batch of two images or more to kernel 3 where autograd does not
@@ -13,7 +14,8 @@ record (batched eval).
 Three wrappers, each with its own launch count: `conv3x3_dil_fwd(x, w, d)`,
 `conv3x3_dil_dgrad(dy, w, d)`, the same kernel on the spatially flipped,
 in/out-swapped weights, and `conv3x3_dil_batched_fwd(x, w, d, nb)`, the
-forward with the batch cut into groups of `nb` images in the launch grid.
+forward with the batch flattened into the GEMM's rows (`nb` is validated as
+the JAX function validates it, and does not change the launch).
 A CPU tensor takes the plain PyTorch version (`conv3x3_dil_plain`: f32
 convolution of the bf16 values, exact products, one rounding); a CUDA tensor
 launches the kernel or raises.
@@ -53,9 +55,10 @@ def supported(x_shape, cout: int, d: int, dtype: torch.dtype) -> bool:
 
 
 def pick_nb(n: int) -> int:
-    """Images per group of the batched forward: the largest of 8, 4, 2 that
+    """The JAX kernel's images per grid block: the largest of 8, 4, 2 that
     divides the batch, else 1 (the JAX `_pick_nb`,
-    ops/pallas/conv3x3_dil.py:130, without its VMEM term)."""
+    ops/pallas/conv3x3_dil.py:130, without its VMEM term). Here it gates
+    the batched forward and validates `nb`; the launch does not use it."""
     for nb in (8, 4, 2):
         if n % nb == 0:
             return nb
@@ -79,28 +82,35 @@ def _library() -> ctypes.CDLL:
         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     lib.asn_conv3x3_dil.restype = ctypes.c_int
     lib.asn_conv3x3_dil_batched.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     lib.asn_conv3x3_dil_batched.restype = ctypes.c_int
     return lib
 
 
+def kmajor_weights(w: torch.Tensor) -> torch.Tensor:
+    """OIHW (Cout, Cin, 3, 3) -> kernel 3's K-major (Cout, 9*Cin), column
+    (ky*3 + kx)*Cin + ci: the transpose of kernel 2's (K, Cout) matrix."""
+    cout, cin = w.shape[:2]
+    return w.permute(0, 2, 3, 1).reshape(cout, 9 * cin)
+
+
 def _launch(x: torch.Tensor, w: torch.Tensor, d: int, what: str,
-            nb: int | None = None) -> torch.Tensor:
-    """Launch the conv on (x, w); with `nb`, the batched entry point."""
+            batched: bool = False) -> torch.Tensor:
+    """Launch kernel 2 on (x, w), or with `batched` kernel 3."""
     n, h, wd, cin = x.shape
     cout = w.shape[0]
-    if tuple(w.shape) != (cout, cin, 3, 3) or cin % 32 or cout % 8:
+    if (tuple(w.shape) != (cout, cin, 3, 3) or cin % (64 if batched else 32)
+            or cout % 8):
         raise ValueError(f"{what}: unsupported weight {tuple(w.shape)} for "
                          f"input {tuple(x.shape)}")
-    wmat = w.permute(2, 3, 1, 0).reshape(9 * cin, cout).contiguous()
+    wmat = (kmajor_weights(w) if batched
+            else w.permute(2, 3, 1, 0).reshape(9 * cin, cout)).contiguous()
     _build.check_operands(what, x.device, x=x, w=wmat)
     out = torch.empty((n, h, wd, cout), dtype=x.dtype, device=x.device)
-    ptrs = (x.data_ptr(), wmat.data_ptr(), out.data_ptr())
-    tail = (h, wd, cin, cout, int(d), _build.stream(x))
     lib = _library()
-    err = (lib.asn_conv3x3_dil(*ptrs, n, *tail) if nb is None
-           else lib.asn_conv3x3_dil_batched(*ptrs, n, nb, *tail))
-    _build.raise_on(err, what)
+    entry = lib.asn_conv3x3_dil_batched if batched else lib.asn_conv3x3_dil
+    _build.raise_on(entry(x.data_ptr(), wmat.data_ptr(), out.data_ptr(), n, h,
+                          wd, cin, cout, int(d), _build.stream(x)), what)
     return out
 
 
@@ -127,8 +137,10 @@ def conv3x3_dil_dgrad(dy: torch.Tensor, w: torch.Tensor, d: int) -> torch.Tensor
 def conv3x3_dil_batched_fwd(x: torch.Tensor, w: torch.Tensor, d: int,
                             nb: int | None = None) -> torch.Tensor:
     """(N, H, W, Cin) NHWC with N >= 2, OIHW w -> (N, H, W, Cout): the
-    forward conv with `nb` images per group of the launch grid (`nb=None`:
-    `pick_nb(N)`). Forward only: the eval path's kernel."""
+    forward conv over the whole batch. Forward only: the eval path's
+    kernel. `nb` (None: `pick_nb(N)`) only mirrors the JAX function's API,
+    images per grid block there: it must divide N, and the result does not
+    depend on it."""
     n = x.shape[0]
     nb = pick_nb(n) if nb is None else int(nb)
     if n < 2 or nb < 1 or n % nb:
@@ -136,7 +148,7 @@ def conv3x3_dil_batched_fwd(x: torch.Tensor, w: torch.Tensor, d: int,
                          f"of {nb}")
     if not _build.on_cuda(x, "conv3x3_dil_batched_fwd"):
         return conv3x3_dil_plain(x, w, d)
-    out = _launch(x, w, d, "conv3x3_dil_batched_fwd", nb)
+    out = _launch(x, w, d, "conv3x3_dil_batched_fwd", batched=True)
     conv3x3_dil_batched_fwd.launches += 1
     return out
 

@@ -2,12 +2,17 @@
 
 Replaces the TPU kernel adaptsegnet_tpu/ops/pallas/conv4x4_s2.py
 (`conv4x4_s2_mxu`, forward, wgrad and dgrad): torch Conv2d(k=4, s=2, p=1) on
-NHWC bf16 with f32 accumulation, the discriminator's conv2..conv4. The CUDA
-source is csrc/conv4x4_s2.cu; its note gives the design of each direction.
+NHWC bf16 with f32 accumulation, the discriminator's conv2..conv4 and the
+Warper encoder's down1..out. The CUDA source is csrc/conv4x4_s2.cu; its note
+gives the design of each direction (forward and dgrad on the Hopper core,
+csrc/igemm_sm90.cuh, which reads K-major weights).
 
 Three wrappers, each with its own launch count:
   conv4x4_s2_fwd(x, w, b)      (N, H, W, Cin) -> (N, H/2, W/2, Cout) bf16,
                                the f32 bias added before the one rounding;
+                               K split by `fwd_plan` where the tiles cannot
+                               fill the card (one count per call, whatever
+                               it launches on the device);
   conv4x4_s2_dgrad(dy, w, hw)  -> dx (N, H, W, Cin) bf16 (gather form);
   conv4x4_s2_wgrad(x, dy)      -> dW (Cout, Cin, 4, 4) f32 (split-K over the
                                pixels, partials summed in order).
@@ -29,6 +34,8 @@ from torch.nn.grad import conv2d_input, conv2d_weight
 from adaptsegnet_tpu_torch.ops.kernels import _build
 
 _WGRAD_PIXELS_PER_SPLIT = 1024
+# The Hopper core's tile (csrc/igemm_sm90.cuh) and the card's SMs (H100 SXM).
+BM, BN, BK, SMS = 128, 128, 64, 132
 
 
 def supported(x_shape, cout: int, dtype: torch.dtype) -> bool:
@@ -64,11 +71,34 @@ def conv4x4_s2_wgrad_plain(x, dy):
 # ------------------------------------------------------------------ kernels
 
 
+def fwd_plan(m: int, k: int, cout: int) -> tuple[int, int, int]:
+    """(bm, splits, per) of the forward's launch for an (m, k) @ (k, cout)
+    implicit GEMM: the row tile (64 where m fits one wgmma M, else 128),
+    the number of K ranges and the K steps of 64 in each. Where the tiles
+    leave more than half the card's SMs idle, K is cut into ranges of
+    whole K steps, the most per range that still gives >= SMS blocks (one
+    at least); every step lies in exactly one range, none is empty."""
+    bm = 64 if m <= 64 else BM
+    tiles = -(-m // bm) * -(-cout // BN)
+    steps = k // BK
+    if 2 * tiles > SMS:
+        return bm, 1, steps
+    per = max(1, steps // -(-SMS // tiles))
+    return bm, -(-steps // per), per
+
+
+def kmajor_weights(w: torch.Tensor) -> torch.Tensor:
+    """OIHW (Cout, Cin, 4, 4) -> the forward's K-major (Cout, 16*Cin), column
+    (ky*4 + kx)*Cin + ci: the transpose of the (K, Cout) weight matrix."""
+    cout, cin = w.shape[:2]
+    return w.permute(0, 2, 3, 1).reshape(cout, 16 * cin)
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = _build.load("conv4x4_s2")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.asn_conv4x4_s2_fwd.argtypes = [p] * 4 + [i] * 5 + [p]
+    lib.asn_conv4x4_s2_fwd.argtypes = [p] * 5 + [i] * 8 + [p]
     lib.asn_conv4x4_s2_dgrad.argtypes = [p] * 3 + [i] * 5 + [p]
     lib.asn_conv4x4_s2_wgrad.argtypes = [p] * 4 + [i] * 6 + [p]
     for fn in (lib.asn_conv4x4_s2_fwd, lib.asn_conv4x4_s2_dgrad,
@@ -86,28 +116,33 @@ def conv4x4_s2_fwd(x: torch.Tensor, w: torch.Tensor,
     cout = w.shape[0]
     if (tuple(w.shape) != (cout, cin, 4, 4) or not supported(x.shape, cout, x.dtype)):
         raise ValueError(f"{what}: unsupported {tuple(x.shape)} -> {tuple(w.shape)}")
-    wmat = w.permute(2, 3, 1, 0).reshape(16 * cin, cout).contiguous()
-    _build.check_operands(what, x.device, x=x, w=wmat)
-    bias = (torch.zeros(cout, device=x.device) if b is None
-            else b.to(x.device, torch.float32).contiguous())
+    wt = kmajor_weights(w).contiguous()
+    _build.check_operands(what, x.device, x=x, w=wt)
+    bias = None if b is None else b.to(x.device, torch.float32).contiguous()
+    m = n * (h // 2) * (wd // 2)
+    bm, splits, per = fwd_plan(m, 16 * cin, cout)
+    ws = (torch.empty((splits, m, cout), dtype=torch.float32, device=x.device)
+          if splits > 1 else None)
     out = torch.empty((n, h // 2, wd // 2, cout), dtype=x.dtype, device=x.device)
     _build.raise_on(_library().asn_conv4x4_s2_fwd(
-        x.data_ptr(), wmat.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        n, h, wd, cin, cout, _build.stream(x)), what)
+        x.data_ptr(), wt.data_ptr(), None if bias is None else bias.data_ptr(),
+        out.data_ptr(), None if ws is None else ws.data_ptr(),
+        n, h, wd, cin, cout, bm, splits, per, _build.stream(x)), what)
     conv4x4_s2_fwd.launches += 1
     return out
 
 
 def dgrad_weights(w: torch.Tensor) -> torch.Tensor:
-    """OIHW (Cout, Cin, 4, 4) -> (4, 4*Cout, Cin): for parity class
-    z = 2*py + px, row block 2a + b holds W[:, :, 1 - py + 2a, 1 - px + 2b]
-    (the taps whose stride-2 source reaches a dx pixel of that parity).
-    With ky = 2a + ry the class's taps are those with ry = 1 - py, so one
-    reshape, permute and flip build all four blocks."""
+    """OIHW (Cout, Cin, 4, 4) -> the dgrad's K-major matrices (4, Cin,
+    4*Cout): for parity class z = 2*py + px, column block 2a + b holds
+    W[:, :, 1 - py + 2a, 1 - px + 2b].T (the taps whose stride-2 source
+    reaches a dx pixel of that parity). With ky = 2a + ry the class's taps
+    are those with ry = 1 - py, so one reshape, permute and flip build all
+    four, in one copy."""
     cout, cin = w.shape[:2]
     w6 = w.reshape(cout, cin, 2, 2, 2, 2)          # (co, ci, a, ry, b, rx)
-    w6 = w6.permute(3, 5, 2, 4, 0, 1).flip(0, 1)   # (py, px, a, b, co, ci)
-    return w6.reshape(4, 4 * cout, cin)
+    w6 = w6.permute(3, 5, 1, 2, 4, 0).flip(0, 1)   # (py, px, ci, a, b, co)
+    return w6.reshape(4, cin, 4 * cout)
 
 
 def conv4x4_s2_dgrad(dy: torch.Tensor, w: torch.Tensor,
@@ -123,11 +158,11 @@ def conv4x4_s2_dgrad(dy: torch.Tensor, w: torch.Tensor,
             or not supported((n, h, wd, cin), cout, dy.dtype)):
         raise ValueError(f"{what}: unsupported {tuple(dy.shape)}, "
                          f"{tuple(w.shape)} -> {hw}")
-    wcls = dgrad_weights(w).contiguous()
-    _build.check_operands(what, dy.device, dy=dy, w=wcls)
+    wt = dgrad_weights(w)
+    _build.check_operands(what, dy.device, dy=dy, w=wt)
     dx = torch.empty((n, h, wd, cin), dtype=dy.dtype, device=dy.device)
     _build.raise_on(_library().asn_conv4x4_s2_dgrad(
-        dy.data_ptr(), wcls.data_ptr(), dx.data_ptr(), n, h, wd, cin, cout,
+        dy.data_ptr(), wt.data_ptr(), dx.data_ptr(), n, h, wd, cin, cout,
         _build.stream(dy)), what)
     conv4x4_s2_dgrad.launches += 1
     return dx

@@ -17,7 +17,8 @@ Warper at 512x1024, bs 1). Phases, each printing one line or more (any
 failure exits nonzero, and there is no CPU fallback):
   1. device, torch and CUDA versions, nvidia-smi name and power limit;
   2. build the five CUDA libraries (six TPU kernels' counterparts) from
-     adaptsegnet_tpu_torch/csrc (one nvcc each, started together);
+     adaptsegnet_tpu_torch/csrc (one nvcc each, started together), with
+     each kernel's registers and spill bytes from ptxas;
   3. hold kernel 1 against its plain PyTorch version on the card;
   4. full-width bf16 eval through make_eval_fn (kernel 1's main path):
      launch counts zeroed before, read after; kernel tail vs plain tail;
@@ -43,8 +44,9 @@ failure exits nonzero, and there is no CPU fallback):
      d-flow at (1, 64, 128, 19) -> 512x1024 in bf16 and f32, on the
      Warper's flow with clamped-edge and exact-boundary sample positions
      added) against
-     its plain version at the train shapes, with its time, the plain
-     version's, the library call's and its bound;
+     its plain version at the train shapes, with its wrapper time, the
+     host's enqueue time, its profiled device time, the plain version's
+     time, the library call's and its bound;
   9. the bf16 multi-level train step at 512x1024 (the train slice's main
      path): launch counts zeroed before 10 timed steps and read after,
      checked against the per-step counts; finite losses, loss_seg2 ~ ln 19
@@ -108,9 +110,9 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
 
 
-def nvidia_smi() -> str:
+def nvidia_smi(query: str = "name,power.limit") -> str:
     return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
+        ["nvidia-smi", f"--query-gpu={query}",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
@@ -886,11 +888,60 @@ def compare_outputs(got, ref, f32_out: bool) -> tuple[float, float]:
     return worst, worst / max(scale, 1e-30)
 
 
+def device_us(fn, iters: int = 10) -> tuple[float, float, float, float]:
+    """Device time of one fn() call from a torch.profiler window over
+    `iters` calls after a warm-up: (the hand-written kernels' own, the
+    PyTorch kernels it also launches, such as weight relayouts and casts),
+    in us per call, then the share of the hand-written kernels' records
+    that the profiler kept and the window's CUDA-event time per call in us.
+    In a whole chip_smoke run (not with --kernels-only) the profiler drops
+    10-60 % of the kernel records of these windows, so each kernel's time
+    is the mean over the records kept times its launches per call, which
+    are whole: `count / iters` rounded up. The CUDA-event time of `cuda_ms`
+    also holds the gaps between launches that the wrapper's host work
+    leaves."""
+    import math
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+    own = torch_side = kept = launched = 0.0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.device_time_total <= 0:
+            continue
+        per_call = math.ceil(e.count / iters)
+        us = e.device_time_total / e.count * per_call
+        if "at::" in e.key or "Memcpy" in e.key or "Memset" in e.key:
+            torch_side += us
+        else:
+            own += us
+            kept += e.count
+            launched += per_call * iters
+    return (own, torch_side, kept / max(launched, 1),
+            start.elapsed_time(end) * 1e3 / iters)
+
+
 def phase_train_kernels(smi: str) -> dict:
     """Each new kernel direction against its plain version at the train
     shapes, then its time beside the plain version's, the library call's
     and its bound. Per direction the numbers are summed over the shapes the
-    main path gives it (one call each)."""
+    main path gives it (one call each). Beside the wrapper's CUDA-event time
+    each line gives the host's time to enqueue one call (where it exceeds
+    the device time, the CUDA-event time is the host's) and the device time
+    of the call's kernels from a profiler window, the hand-written ones
+    apart from the PyTorch ones (weight relayout, bias cast), with the
+    share of records the profiler kept, the window's CUDA-event time and
+    the SM clock that nvidia-smi reads right after the window."""
     from adaptsegnet_tpu_torch.ops.kernels import KERNELS
 
     rng = np.random.default_rng(SEED + 10)
@@ -908,12 +959,29 @@ def phase_train_kernels(smi: str) -> dict:
                   f"{name} did not count its launch")
             err, rel = compare_outputs(got, plain(), f32_out)
             ms = cuda_ms(kern, iters=20)
+            own_us, torch_us, kept, window_us = device_us(kern)
+            sm = nvidia_smi("clocks.sm")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                kern()
+            host_us = (time.perf_counter() - t0) / 20 * 1e6
+            torch.cuda.synchronize()
             plain_ms = cuda_ms(plain, iters=5)
             lib_ms = cuda_ms(lib, iters=20)
             ops_ms, bytes_ms = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+            device = (f"device {own_us:.1f} us ({flops / own_us / 1e6:.1f} "
+                      f"TFLOP/s, {max(ops_ms, bytes_ms) * 1e5 / own_us:.1f} % "
+                      f"of the bound; {kept:.0%} of its records kept) + {torch_us:.1f} "
+                      f"us of PyTorch kernels"
+                      if own_us > 0 else "device time not measured (the "
+                      "profiler saw no kernel)")
+            device += f"; profiled window {window_us:.1f} us/call, then SM clock {sm}"
             print(f"phase 8: {name} {label}: max abs err {err:.3g} "
                   f"({rel:.2e} of max |plain|); kernel {ms * 1e3:.1f} us "
-                  f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms * 1e3:.1f} "
+                  f"({flops / ms / 1e9:.1f} TFLOP/s; host enqueue {host_us:.1f} "
+                  f"us/call); {device}; plain "
+                  f"{plain_ms * 1e3:.1f} "
                   f"us, library {lib_ms * 1e3:.1f} us, bound "
                   f"{max(ops_ms, bytes_ms) * 1e3:.2f} us ({flops / 1e9:.2f} "
                   f"GFLOP, {nbytes / 1e6:.1f} MB) [{smi}]")
@@ -1365,7 +1433,8 @@ def main() -> int:
     logs = _build.build(list(LIBRARIES))
     ptxas = " | ".join(ln.strip() for log in logs.values()
                        for ln in log.splitlines()
-                       if "registers" in ln or "spill" in ln)
+                       if "Compiling entry function" in ln or "registers" in ln
+                       or "spill" in ln)
     print(f"phase 2: built {sorted(logs) or 'nothing (cached)'} in "
           f"{time.perf_counter() - t0:.1f} s; ptxas: {ptxas}")
 

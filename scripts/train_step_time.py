@@ -9,12 +9,14 @@ Builds the train state with the code of the checkout at --root (default:
 the one this script lies in; an unpacked copy of another commit times that
 commit's code, which builds its own kernels), runs `--warmup` steps, then
 `--steps` steps between two CUDA events at 512x1024, bs 1, seed 0, with
-synthetic batches, and prints
-one JSON line: ms/step, kernel launches per step by wrapper (where the
-checkout counts them), peak memory, and the card's nvidia-smi name and power
-limit. Source-only and single-level build the 8-layer Warper where the
-checkout has one. Put two checkouts' runs in one call, in turns (A, B, B,
-A), to compare them on one card.
+synthetic batches, and prints one JSON line: ms/step, kernel launches per
+step by wrapper (where the checkout counts them), peak memory, the
+device-busy ms per step from a torch.profiler window over 3 more steps,
+and the card's nvidia-smi name, power limit and SM clock, read right
+after that window. Source-only and single-level build the
+8-layer Warper where the checkout has one. Put two checkouts' runs in one
+call, in turns (A, B, B, A), to compare them on one card
+(`scripts/ab_turns.sh`).
 """
 
 from __future__ import annotations
@@ -87,16 +89,27 @@ def main() -> int:
         step(state, batches[i % 3])
     end.record()
     torch.cuda.synchronize()
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+    ms_per_step = start.elapsed_time(end) / args.steps
+    launches = {k: v / args.steps for k, v in kernels.launch_counts().items() if v}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(3):
+            step(state, batches[i % 3])
+        torch.cuda.synchronize()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip().splitlines()[0]
+    smi, sm = smi.rsplit(", ", 1)
+    busy = sum(e.device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 3e3
     print(json.dumps({
         "tag": args.tag or args.root, "mode": args.mode,
-        "ms_per_step": start.elapsed_time(end) / args.steps,
-        "launches_per_step": {k: v / args.steps for k, v in
-                              kernels.launch_counts().items() if v},
-        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-        "card": smi,
+        "ms_per_step": ms_per_step, "launches_per_step": launches,
+        "peak_gib": peak_gib, "device_busy_ms_per_step": busy,
+        "sm_clock": sm, "card": smi,
     }))
     return 0
 

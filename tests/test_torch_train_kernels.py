@@ -166,15 +166,15 @@ def test_kernel_weight_layouts(rng):
 
     w = torch.from_numpy(rng.standard_normal((8, 6, 4, 4)).astype(np.float32))
     wcls = k5.dgrad_weights(w)
-    assert wcls.shape == (4, 4 * 8, 6)
+    assert wcls.shape == (4, 6, 4 * 8) and wcls.is_contiguous()
     for py in (0, 1):
         for px in (0, 1):
             for a in (0, 1):
                 for b in (0, 1):
                     t = 2 * a + b
                     np.testing.assert_array_equal(
-                        wcls[2 * py + px, t * 8:(t + 1) * 8].numpy(),
-                        w[:, :, 1 - py + 2 * a, 1 - px + 2 * b].numpy())
+                        wcls[2 * py + px, :, t * 8:(t + 1) * 8].numpy(),
+                        w[:, :, 1 - py + 2 * a, 1 - px + 2 * b].numpy().T)
     w4 = torch.from_numpy(rng.standard_normal((64, 19, 4, 4)).astype(np.float32))
     wpy = k4.dgrad_weights(w4)
     assert wpy.shape == (2, 512, 32)
