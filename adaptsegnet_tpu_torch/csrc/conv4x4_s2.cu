@@ -20,143 +20,191 @@
 //          classes (blockIdx.z) an implicit GEMM with K = 4*Cout against
 //          that class's K-major (Cin, 4*Cout) weight matrix (built by the
 //          wrapper). Every dx element is written once: no atomics.
-//   wgrad: dW[(ky, kx, ci), co] = sum over pixels of x(src) * dy, a GEMM of
-//          (16*Cin, Cout) reduced over M = N*Ho*Wo on wmma fragments
-//          (csrc/igemm_bf16.cuh's cp.async helpers). The pixels are split
-//          into `splits` ranges, one f32 partial each (split-K), and a
-//          second pass sums the partials in split order: deterministic, f32
-//          out.
+//   wgrad: dW[(ky, kx, ci), co] = sum over pixels of x(src) * dy, a GEMM
+//          of (16*Cin) x Cout reduced over K = N*Ho*Wo pixels, on wgmma
+//          (`wgrad_sm90_kernel` below, built from csrc/igemm_sm90.cuh's
+//          ring, descriptors and transposed wgmma). Where the output tiles
+//          cannot fill the card the pixels are split into `splits` ranges
+//          (the wrapper's `wgrad_plan`), one f32 partial each, and
+//          csrc/splitk.cuh sums the partials in split order: deterministic,
+//          f32 out.
 //
 // Bound on the H100: at D conv2..4 and the encoder's down1..3 each
 // direction is 8.59 GFLOP against a few MB of traffic, i.e. tensor-core
-// bound (989 TFLOP/s bf16 dense); at down4..out (output 16x32 .. 2x4,
-// K = 8,192) the 8.4 MB weight read bounds the call (2.5-4.3 us), which
-// is why the forward splits K there: 4-16 output tiles become >= 132
+// bound (989 TFLOP/s bf16 dense: 8.69 us); at down4..out (output 16x32 ..
+// 2x4, K = 8,192) the 8.4 MB weight read bounds the call (2.5-4.3 us),
+// which is why the forward splits K there: 4-16 output tiles become >= 132
 // blocks that each read a slice of the weights once.
+//
+// The wgrad's operands are both MN-major: for one pixel (its K index) the
+// Cin channels of x at a tap, and the Cout channels of dy, lie contiguous.
+// So neither is transposed on the way in: a 128-row tile of dW rows (one
+// tap where Cin >= 128, two at Cin = 64) takes, per pixel, one 128-byte row
+// of x per 64 rows, gathered by 16-byte cp.async (zero fill outside the
+// image and past the last pixel), and dy comes by two TMA boxes of 64
+// pixels x 64 channels per stage; both land in the 128B-swizzled MN-major
+// layout (pixel k's row at k * 128 bytes, its 16-byte chunk c at c ^ (k %
+// 8)), and wgmma reads them with the transpose flags set. Splitting K over
+// the pixels only as far as one wave of blocks needs keeps the f32
+// partials, written and read again by the second pass, at <= 8.4 MB at the
+// D convs and at none at conv4, whose 128 tiles fill the card.
 
-#include "igemm_bf16.cuh"
 #include "igemm_sm90.cuh"
 #include "splitk.cuh"
 
 namespace {
 
-using namespace nvcuda;
-using igemm::cp_async16;
-using igemm::cp_async_commit;
-using igemm::cp_async_wait;
+constexpr int kWgBM = 128, kWgBN = 128;  // dW rows x output channels
+using WgRing = sm90::Ring<2, kWgBN>;     // two consumer warpgroups
+constexpr int kWgHalf = 64 * sm90::kRowBytes;  // 64 K rows of 128 bytes
 
-constexpr int kBM = 128, kBN = 128, kBK = 32, kStages = 3, kThreads = 256;
-constexpr int kLd = 128 + 8;  // bf16 per smem row: 128 rows-or-cols + pad
-constexpr size_t kWgradSmem =
-    2 * kStages * kBK * kLd * sizeof(__nv_bfloat16);
+struct WgradGeo {
+  int h, w, cin, cout;  // x: (n, h, w, cin), dy: (n, ho, wo, cout)
+  int ho, wo, m;        // output grid, pixels in all (K of the GEMM)
+  int per;              // pixels per split (blockIdx.z), a multiple of 64
+};
 
-// ws[split][r][co] = sum over this split's pixels m of
-//   x[n, 2i + ky - 1, 2j + kx - 1, ci] * dy[m, co], r = (ky*4 + kx)*cin + ci.
-// A^T tile in smem as [pixel][r] (wmma matrix_a col_major), dy as
-// [pixel][co] (matrix_b row_major).
-__global__ void __launch_bounds__(kThreads)
-wgrad_kernel(const __nv_bfloat16* __restrict__ x,
-             const __nv_bfloat16* __restrict__ dy, float* __restrict__ ws,
-             int n, int h, int w, int cin, int cout, int pix_per_split) {
-  extern __shared__ __align__(16) unsigned char wgrad_smem[];
-  __nv_bfloat16* sA = reinterpret_cast<__nv_bfloat16*>(wgrad_smem);
-  __nv_bfloat16* sB = sA + kStages * kBK * kLd;
+// out[split][r][co] = sum over this split's pixels p of
+//   x[n, 2i + ky - 1, 2j + kx - 1, ci] * dy[p, co], r = (ky*4 + kx)*cin + ci,
+// p = (n, i, j). Stage s holds A as two 64-row halves (rows r0 .. r0 + 63,
+// r0 + 64 .. r0 + 127 of dW) and B as two 64-column halves, each half 64
+// pixels x 128 bytes in the MN-major swizzled layout. out is dk itself when
+// splits == 1.
+__global__ void __launch_bounds__(384, 1)
+wgrad_sm90_kernel(const __grid_constant__ CUtensorMap tmap_dy,
+                  const __nv_bfloat16* __restrict__ x, float* __restrict__ out,
+                  const WgradGeo g) {
+  using namespace sm90;
+  constexpr int kStages = WgRing::kStages;
+  constexpr int kATile = WgRing::kATileBytes, kBTile = WgRing::kBTileBytes;
+  extern __shared__ uint8_t wg_smem[];
+  const uint32_t raw = smem_u32(wg_smem);
+  const uint32_t sA = (raw + 1023) & ~1023u;
+  const uint32_t sB = sA + kStages * kATile;
+  const uint32_t full = sB + kStages * kBTile;
+  const uint32_t empty = full + kStages * 8;
 
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int wm = warp >> 1, wn = warp & 1;
-  const int r0 = blockIdx.x * kBM, c0 = blockIdx.y * kBN, s = blockIdx.z;
-  const int ho = h / 2, wo = w / 2;
-  const int M = n * ho * wo;
-  const int p0 = s * pix_per_split;
-  const int p1 = min(p0 + pix_per_split, M);
-  const int KT = (p1 - p0 + kBK - 1) / kBK;
+  const int tid = threadIdx.x;
+  const int r0 = blockIdx.x * kWgBM, n0 = blockIdx.y * kWgBN;
+  const int split = blockIdx.z;
+  const int p0 = split * g.per;
+  const int kt_count = (min(g.m, p0 + g.per) - p0 + kBK - 1) / kBK;
 
-  const int vec = tid & 15, kk0 = tid >> 4;  // pixels kk0, kk0 + 16
-  const int r = r0 + vec * 8;
-  const int tap = r / cin, ci = r - tap * cin;
-  const int ky = tap >> 2, kx = tap & 3;
-
-  auto load_stage = [&](int stage, int kt) {
-    __nv_bfloat16* dA = sA + stage * kBK * kLd;
-    __nv_bfloat16* dB = sB + stage * kBK * kLd;
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const int kk = kk0 + q * 16;
-      const int m = p0 + kt * kBK + kk;
-      const bool in = m < p1;
-      const int mm = in ? m : 0;
-      const int j = mm % wo, t = mm / wo;
-      const int i = t % ho, nn = t / ho;
-      const int y = 2 * i + ky - 1, xx = 2 * j + kx - 1;
-      const bool ok = in && y >= 0 && y < h && xx >= 0 && xx < w;
-      const __nv_bfloat16* pa =
-          ok ? x + ((static_cast<size_t>(nn) * h + y) * w + xx) * cin + ci : x;
-      cp_async16(dA + kk * kLd + vec * 8, pa, ok);
-      const __nv_bfloat16* pb =
-          in ? dy + static_cast<size_t>(mm) * cout + c0 + vec * 8 : dy;
-      cp_async16(dB + kk * kLd + vec * 8, pb, in);
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 128 + 1);  // 128 cp.async arrivals + the TMA's
+      mbar_init(empty + 8 * s, 256);
     }
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-#pragma unroll
-  for (int st = 0; st < kStages - 1; ++st) {
-    if (st < KT) load_stage(st, st);
-    cp_async_commit();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();
-    const int pre = kt + kStages - 1;
-    if (pre < KT) load_stage(pre % kStages, pre);
-    cp_async_commit();
-    const __nv_bfloat16* tA = sA + (kt % kStages) * kBK * kLd;
-    const __nv_bfloat16* tB = sB + (kt % kStages) * kBK * kLd;
+  __syncthreads();
+
+  if (tid < 128) {
+    // ---- producer: thread (chunk, k0) gathers 16 bytes of pixels k0 + 16 i
+    // of each stage, for both 64-row halves of the tile.
+    const int chunk = tid & 7, k0 = tid >> 3;
+    int offy[2], offx[2], coff[2];
 #pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::col_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> fb[4];
+    for (int b = 0; b < 2; ++b) {
+      const int r = r0 + 64 * b;
+      const int tap = r / g.cin;
+      offy[b] = (tap >> 2) - 1;
+      offx[b] = (tap & 3) - 1;
+      coff[b] = r - tap * g.cin + chunk * 8;
+    }
+    // Pixel p = p0 + 64 kt + k0 + 16 i as (image, row, column), stepped by
+    // 64 pixels per stage.
+    int pm[4], pn[4], pi[4], pj[4];
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], tA + kk * kLd + wm * 32 + i * 16, kLd);
+    for (int i = 0; i < 4; ++i) {
+      pm[i] = p0 + k0 + 16 * i;
+      pj[i] = pm[i] % g.wo;
+      const int t = pm[i] / g.wo;
+      pi[i] = t % g.ho;
+      pn[i] = t / g.ho;
+    }
+    // 128B swizzle: the 16-byte chunk c of K row k sits at chunk c ^ (k % 8).
+    const uint32_t a_dst = k0 * kRowBytes + ((chunk ^ (k0 & 7)) << 4);
+    for (int it = 0; it < kt_count; ++it) {
+      const int s = it % kStages;
+      mbar_wait(empty + 8 * s, ((it / kStages) & 1) ^ 1);
+      if (tid == 0) {
+        const uint32_t b_dst = sB + s * kBTile;
+        mbar_expect_tx(full + 8 * s, kBTile);
+        tma_load_3d(b_dst, &tmap_dy, full + 8 * s, n0, p0 + it * kBK, 0);
+        tma_load_3d(b_dst + kWgHalf, &tmap_dy, full + 8 * s, n0 + 64,
+                    p0 + it * kBK, 0);
+      }
+      const uint32_t dst = sA + s * kATile + a_dst;
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wmma::load_matrix_sync(fb[j], tB + kk * kLd + wn * 64 + j * 16, kLd);
+      for (int i = 0; i < 4; ++i) {
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
+        for (int b = 0; b < 2; ++b) {
+          const int y = 2 * pi[i] + offy[b], xx = 2 * pj[i] + offx[b];
+          const bool ok = pm[i] < g.m && y >= 0 && y < g.h && xx >= 0 &&
+                          xx < g.w;
+          const __nv_bfloat16* p =
+              ok ? x + (static_cast<size_t>(pn[i] * g.h + y) * g.w + xx) *
+                           g.cin + coff[b]
+                 : x;
+          cp_async16(dst + b * kWgHalf + i * 16 * kRowBytes, p, ok);
+        }
+        pm[i] += kBK;
+        pj[i] += kBK;
+        while (pj[i] >= g.wo) {
+          pj[i] -= g.wo;
+          if (++pi[i] == g.ho) {
+            pi[i] = 0;
+            ++pn[i];
+          }
+        }
+      }
+      cp_async_arrive(full + 8 * s);
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    return;
+  }
+
+  // ---- consumers: warpgroup cw computes dW rows r0 + [cw * 64, cw * 64 + 64)
+  // over all 128 columns. Each k16 step is 16 K rows = two 1,024-byte atoms.
+  const int cw = (tid >> 7) - 1;
+  float acc[kWgBN / 2];
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+  for (int e = 0; e < kWgBN / 2; ++e) acc[e] = 0.0f;
+  for (int it = 0; it < kt_count; ++it) {
+    const int s = it % kStages;
+    mbar_wait(full + 8 * s, (it / kStages) & 1);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    wgmma_fence();
+    const uint64_t da = desc_mn_sw128(sA + s * kATile + cw * kWgHalf, kWgHalf);
+    const uint64_t db = desc_mn_sw128(sB + s * kBTile, kWgHalf);
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk)  // 2,048 bytes along K per step
+      wgmma_m64n128k16<1>(acc, da + 128 * kk, db + 128 * kk);
+    wgmma_commit();
+    wgmma_wait<1>();
+    if (it > 0) mbar_arrive(empty + 8 * ((it - 1) % kStages));
+  }
+  wgmma_wait<0>();
+
+  // acc[4 j + 2 h + e] is row warp * 16 + lane / 4 + 8 h, column
+  // 8 j + 2 (lane % 4) + e of the warpgroup's 64 x 128 tile.
+  const int warp = (tid >> 5) & 3, lane = tid & 31;
+  float* dst = out + static_cast<size_t>(split) * 16 * g.cin * g.cout;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + cw * 64 + warp * 16 + (lane >> 2) + 8 * h;
+#pragma unroll
+    for (int jj = 0; jj < kWgBN / 8; ++jj) {
+      const int col = n0 + 8 * jj + 2 * (lane & 3);
+      *reinterpret_cast<float2*>(dst + static_cast<size_t>(r) * g.cout + col) =
+          make_float2(acc[4 * jj + 2 * h], acc[4 * jj + 2 * h + 1]);
     }
   }
-  cp_async_wait<0>();
-
-  const size_t rows = static_cast<size_t>(16) * cin;
-  float* dst = ws + static_cast<size_t>(s) * rows * cout;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      wmma::store_matrix_sync(
-          dst + static_cast<size_t>(r0 + wm * 32 + i * 16) * cout + c0 +
-              wn * 64 + j * 16,
-          acc[i][j], cout, wmma::mem_row_major);
 }
 
 }  // namespace
 
-// x: (n, h, w, cin) bf16; wt: (cout, 16 * cin) bf16, K-major, column
-// (ky*4 + kx)*cin + ci; bias: (cout,) f32 or null; out: (n, h/2, w/2, cout)
-// bf16; bm (128, or 64 for tiny M), splits and per (K steps of 64 per
-// split) from the wrapper's plan; ws: (splits, n*h/2*w/2, cout) f32 when
-// splits > 1, else null. cin % 64 == 0, cout % 8 == 0.
 extern "C" int asn_conv4x4_s2_fwd(const void* x, const void* wt,
                                   const void* bias, void* out, void* ws,
                                   int n, int h, int w, int cin, int cout,
@@ -222,31 +270,49 @@ extern "C" int asn_conv4x4_s2_dgrad(const void* dy, const void* wt, void* dx,
                       static_cast<cudaStream_t>(stream));
 }
 
-// x: (n, h, w, cin) bf16; dy: (n, h/2, w/2, cout) bf16; ws: (splits, 16*cin,
-// cout) f32 scratch; dk: (16*cin, cout) f32, row (ky*4 + kx)*cin + ci.
-// 16*cin % 128 == 0, cout % 128 == 0.
+// x: (n, h, w, cin) bf16; dy: (n, h/2, w/2, cout) bf16; dk: (16*cin, cout)
+// f32, row (ky*4 + kx)*cin + ci; splits and per (pixels per split, a
+// multiple of 64) from the wrapper's plan; ws: (splits, 16*cin, cout) f32
+// scratch when splits > 1, else null (the kernel writes dk). cin % 64 == 0,
+// cout % 128 == 0.
 extern "C" int asn_conv4x4_s2_wgrad(const void* x, const void* dy, void* ws,
                                     void* dk, int n, int h, int w, int cin,
-                                    int cout, int splits, void* stream) {
-  static bool configured = false;
+                                    int cout, int splits, int per,
+                                    void* stream) {
+  WgradGeo g;
+  g.h = h;
+  g.w = w;
+  g.cin = cin;
+  g.cout = cout;
+  g.ho = h / 2;
+  g.wo = w / 2;
+  g.m = n * g.ho * g.wo;
+  g.per = per;
+  if (cin % 64 || cout % kWgBN || splits < 1 || per < 1 || per % sm90::kBK ||
+      static_cast<long long>(splits) * per < g.m ||
+      static_cast<long long>(splits - 1) * per >= g.m ||
+      (splits > 1 && ws == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr size_t bytes = WgRing::kSmemBytes;
+  static bool configured = false;  // the attribute is set once per process
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(kWgradSmem));
+        wgrad_sm90_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int m = n * (h / 2) * (w / 2);
-  int per = (m + splits - 1) / splits;
-  per = (per + kBK - 1) / kBK * kBK;
-  const dim3 grid(16 * cin / kBM, cout / kBN, splits);
-  wgrad_kernel<<<grid, kThreads, kWgradSmem, s>>>(
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(dy), static_cast<float*>(ws), n, h, w,
-      cin, cout, per);
-  const int err = static_cast<int>(cudaGetLastError());
+  // dy as (1, m, cout): boxes of 64 pixels x 64 channels, zero past m.
+  CUtensorMap map;
+  int err = sm90::encode_map_3d(&map, dy, cout, g.m, 1, 64, sm90::kBK);
   if (err) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(16 * cin / kWgBM, cout / kWgBN, splits);
+  wgrad_sm90_kernel<<<grid, 384, bytes, s>>>(
+      map, static_cast<const __nv_bfloat16*>(x),
+      static_cast<float*>(splits > 1 ? ws : dk), g);
+  err = static_cast<int>(cudaGetLastError());
+  if (err || splits == 1) return err;
   return splitk::sum_splits(static_cast<const float*>(ws),
                             static_cast<float*>(dk), splits,
                             static_cast<long long>(16) * cin * cout, s);

@@ -1,24 +1,29 @@
 // Implicit-GEMM convolution core for Hopper (sm_90a): wgmma.mma_async bf16
 // with f32 accumulators, the weight operand by TMA and the im2col operand by
 // a cp.async gather, in a ring of shared-memory stages governed by
-// mbarriers. Serves kernel 3 (csrc/conv3x3_dil.cu, the batched 3x3 forward)
-// and kernel 5's forward and dgrad (csrc/conv4x4_s2.cu); kernel 2 stays on
-// csrc/igemm_bf16.cuh.
+// mbarriers. Serves kernels 2 and 3 (csrc/conv3x3_dil.cu: the train path's
+// 3x3 forward and dgrad, the eval path's batched forward) and kernel 5's
+// forward and dgrad (csrc/conv4x4_s2.cu); kernel 5's wgrad is a kernel of
+// its own built from this file's pieces (the ring, the MN-major descriptor,
+// the transposed wgmma).
 //
-// Same contract as csrc/igemm_bf16.cuh: out[M, Ncols] = A[M, K] @ B[K, Ncols]
-// with A never materialised (row m of A is the Cs channels of one source
-// pixel per tap, read from the NHWC source, zero padding applied on load),
-// f32 accumulation, an optional f32 bias added before the one rounding to
-// bf16. The geometry (`Geo`) has the fields of igemm::Geo, the batch
-// flattened into M (a tile may straddle two images), plus the split of K.
+// out[M, Ncols] = A[M, K] @ B[K, Ncols] with A never materialised (row m of
+// A is the Cs channels of one source pixel per tap, read from the NHWC
+// source, zero padding applied on load), f32 accumulation, an optional f32
+// bias added before the one rounding to bf16. The geometry (`Geo`) maps an
+// output-grid pixel and a tap to a source pixel and a destination pixel,
+// the batch flattened into M (a tile may straddle two images), plus the
+// split of K.
 //
 // What bounds it on the H100, and what the design does about it:
-// - At kernel 3's shapes and kernel 5's wide ones (K = 1,152-8,192 against
+// - At the 3x3 convs and kernel 5's wide shapes (K = 1,152-8,192 against
 //   M of 2,048-32,768 pixels) the products bound the call (989 TFLOP/s bf16
-//   dense). They run as wgmma m64n128k16 from shared memory: two consumer
-//   warpgroups on a 128 x 128 tile (one on a 64 x 128 tile where M is
-//   tiny), 64 f32 accumulators per thread, so the block's 168-register
-//   budget needs no setmaxnreg.
+//   dense). They run as wgmma m64n128k16 / m64n256k16 from shared memory:
+//   two consumer warpgroups on a 128 x 128 or 128 x 256 tile (one on a
+//   64 x 128 tile where M is tiny), 64 or 128 f32 accumulators per thread.
+//   The caller picks the tile so that the grid still fills the card
+//   (ops/kernels/conv3x3_dil.py::tile_plan): the wider tile halves the
+//   gather's L2 traffic, but at one image it would leave half the SMs idle.
 // - The operands reach the tensor cores through a ring of kStages stages,
 //   each one K step of 64 bf16 (one 128-byte swizzle row) of A and B in the
 //   128B-swizzled K-major layout that the wgmma descriptors read. A
@@ -149,6 +154,20 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
          (static_cast<uint64_t>(1) << 62);
 }
 
+// wgmma descriptor of an MN-major tile in the 128B-swizzled layout: 64
+// consecutive M (or N) values of one K index fill a 128-byte row, 8 K
+// indices make a 1,024-byte atom (stride byte offset: the next 8 K), and
+// the next 64 M (or N) values lie `mn_stride` bytes on (leading byte
+// offset). The layout CUTLASS's make_gmma_desc builds for Major::MN with
+// SW128: ((8, 8, m), (8, k)) : ((1, 8, LBO), (64, SBO)) in elements.
+__device__ __forceinline__ uint64_t desc_mn_sw128(uint32_t addr,
+                                                  uint32_t mn_stride) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((mn_stride & 0x3FFFF) >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -160,7 +179,9 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-// d[64 x 128] += A[64 x 16] @ B[16 x 128]^T, both K-major in shared memory.
+// d[64 x 128] += A[64 x 16] @ B[16 x 128]^T, both K-major in shared memory
+// (kTrans 0), or both MN-major (kTrans 1: imm-trans-a and imm-trans-b).
+template <int kTrans = 0>
 __device__ __forceinline__ void wgmma_m64n128k16(float* d, uint64_t da,
                                                  uint64_t db) {
   asm volatile(
@@ -171,7 +192,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float* d, uint64_t da,
       "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
       "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
       "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n"
+      "%64, %65, p, 1, 1, %67, %67;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
@@ -186,7 +207,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float* d, uint64_t da,
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(kTrans));
 }
 
 // d[64 x 256] += A[64 x 16] @ B[16 x 256]^T, both K-major in shared memory.
@@ -397,22 +418,43 @@ typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
                                   CUtensorMapFloatOOBfill);
 
 // libcuda's cuTensorMapEncodeTiled, fetched through the runtime (the
-// library does not link libcuda).
+// library does not link libcuda); null if the runtime cannot give it.
 inline EncodeTiledFn encode_tiled() {
   static EncodeTiledFn fn = nullptr;
   if (fn == nullptr) {
     void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
 #if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &q);
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
 #else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &q);
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
 #endif
-    if (q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiledFn>(p);
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess && p != nullptr)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
   }
   return fn;
+}
+
+// A 3D bf16 tensor map with 128B swizzle over a (d2, d1, d0) row-major
+// array (d0 innermost), boxes of (1, box1, box0); out-of-range elements
+// load as zero. Returns a cudaError_t.
+inline int encode_map_3d(CUtensorMap* map, const void* base, uint64_t d0,
+                         uint64_t d1, uint64_t d2, uint32_t box0,
+                         uint32_t box1) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorInvalidDeviceFunction);
+  const cuuint64_t dims[3] = {d0, d1, d2};
+  const cuuint64_t strides[2] = {d0 * 2, d0 * d1 * 2};
+  const cuuint32_t box[3] = {box0, box1, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <int kWG, int kBN>
@@ -457,22 +499,9 @@ inline int launch(const void* src, const void* bt, const void* bias, void* out,
       (g.splits > 1 && (g.zpar || g.os != 1 || ws == nullptr)) ||
       !((bm == 128 && (bn == 128 || bn == 256)) || (bm == 64 && bn == 128)))
     return static_cast<int>(cudaErrorInvalidValue);
-  EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return static_cast<int>(cudaErrorInvalidDeviceFunction);
   CUtensorMap map;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(K),
-                              static_cast<cuuint64_t>(g.ncols),
-                              static_cast<cuuint64_t>(classes)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(K) * 2,
-                                 static_cast<cuuint64_t>(K) * g.ncols * 2};
-  const cuuint32_t box[3] = {kBK, static_cast<cuuint32_t>(bn), 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  const CUresult r = encode(
-      &map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(bt), dims,
-      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  if (r != CUDA_SUCCESS) return static_cast<int>(cudaErrorInvalidValue);
+  const int err = encode_map_3d(&map, bt, K, g.ncols, classes, kBK, bn);
+  if (err) return err;
   if (bm == 64)
     return launch_wg<1, 128>(map, src, bias, out, ws, g, classes, stream);
   if (bn == 256)

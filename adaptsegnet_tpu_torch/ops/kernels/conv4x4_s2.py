@@ -4,8 +4,12 @@ Replaces the TPU kernel adaptsegnet_tpu/ops/pallas/conv4x4_s2.py
 (`conv4x4_s2_mxu`, forward, wgrad and dgrad): torch Conv2d(k=4, s=2, p=1) on
 NHWC bf16 with f32 accumulation, the discriminator's conv2..conv4 and the
 Warper encoder's down1..out. The CUDA source is csrc/conv4x4_s2.cu; its note
-gives the design of each direction (forward and dgrad on the Hopper core,
-csrc/igemm_sm90.cuh, which reads K-major weights).
+gives the design of each direction: forward and dgrad on the Hopper core
+(csrc/igemm_sm90.cuh, which reads K-major weights), the wgrad a wgmma kernel
+of its own that reads x and dy in place (both MN-major). The products bound
+every direction at D conv2..4 (8.59 GFLOP, 8.69 us at 989 TFLOP/s); where
+the output tiles cannot fill the card, the plans here (`fwd_plan`,
+`wgrad_plan`) split the reduction into as many ranges as one wave needs.
 
 Three wrappers, each with its own launch count:
   conv4x4_s2_fwd(x, w, b)      (N, H, W, Cin) -> (N, H/2, W/2, Cout) bf16,
@@ -14,8 +18,9 @@ Three wrappers, each with its own launch count:
                                fill the card (one count per call, whatever
                                it launches on the device);
   conv4x4_s2_dgrad(dy, w, hw)  -> dx (N, H, W, Cin) bf16 (gather form);
-  conv4x4_s2_wgrad(x, dy)      -> dW (Cout, Cin, 4, 4) f32 (split-K over the
-                               pixels, partials summed in order).
+  conv4x4_s2_wgrad(x, dy)      -> dW (Cout, Cin, 4, 4) f32 (the pixels split
+                               by `wgrad_plan` where the tiles cannot fill
+                               the card, partials summed in order).
 Weights are OIHW in bf16. A CPU tensor takes the plain PyTorch version of
 each (f32 convolutions of the bf16 values: exact products, f32 sums, one
 rounding where the kernel rounds); a CUDA tensor launches the kernel or
@@ -33,7 +38,6 @@ from torch.nn.grad import conv2d_input, conv2d_weight
 
 from adaptsegnet_tpu_torch.ops.kernels import _build
 
-_WGRAD_PIXELS_PER_SPLIT = 1024
 # The Hopper core's tile (csrc/igemm_sm90.cuh) and the card's SMs (H100 SXM).
 BM, BN, BK, SMS = 128, 128, 64, 132
 
@@ -100,7 +104,7 @@ def _library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.asn_conv4x4_s2_fwd.argtypes = [p] * 5 + [i] * 8 + [p]
     lib.asn_conv4x4_s2_dgrad.argtypes = [p] * 3 + [i] * 5 + [p]
-    lib.asn_conv4x4_s2_wgrad.argtypes = [p] * 4 + [i] * 6 + [p]
+    lib.asn_conv4x4_s2_wgrad.argtypes = [p] * 4 + [i] * 7 + [p]
     for fn in (lib.asn_conv4x4_s2_fwd, lib.asn_conv4x4_s2_dgrad,
                lib.asn_conv4x4_s2_wgrad):
         fn.restype = i
@@ -168,8 +172,17 @@ def conv4x4_s2_dgrad(dy: torch.Tensor, w: torch.Tensor,
     return dx
 
 
-def wgrad_splits(n_pixels: int) -> int:
-    return max(1, n_pixels // _WGRAD_PIXELS_PER_SPLIT)
+def wgrad_plan(m: int, rows: int, cout: int) -> tuple[int, int]:
+    """(splits, per) of the wgrad's launch for a (rows, m) @ (m, cout) GEMM
+    reduced over m pixels: the pixel ranges and the pixels in each, a
+    multiple of one K step (64). The BM x BN output tiles alone fill the
+    card where there are about SMS of them; else the pixels are split into
+    the most ranges that keep tiles x splits within one wave, every K step
+    in exactly one range, none empty."""
+    tiles = -(-rows // BM) * -(-cout // BN)
+    steps = -(-m // BK)
+    per = -(-steps // max(1, min(steps, SMS // tiles)))
+    return -(-steps // per), per * BK
 
 
 def conv4x4_s2_wgrad(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
@@ -183,12 +196,13 @@ def conv4x4_s2_wgrad(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     if (tuple(dy.shape) != (n, h // 2, wd // 2, cout)
             or not supported(x.shape, cout, x.dtype)):
         raise ValueError(f"{what}: unsupported {tuple(x.shape)}, {tuple(dy.shape)}")
-    splits = wgrad_splits(n * (h // 2) * (wd // 2))
-    ws = torch.empty((splits, 16 * cin, cout), dtype=torch.float32, device=x.device)
+    splits, per = wgrad_plan(n * (h // 2) * (wd // 2), 16 * cin, cout)
+    ws = (torch.empty((splits, 16 * cin, cout), dtype=torch.float32,
+                      device=x.device) if splits > 1 else None)
     dk = torch.empty((16 * cin, cout), dtype=torch.float32, device=x.device)
     _build.raise_on(_library().asn_conv4x4_s2_wgrad(
-        x.data_ptr(), dy.data_ptr(), ws.data_ptr(), dk.data_ptr(),
-        n, h, wd, cin, cout, splits, _build.stream(x)), what)
+        x.data_ptr(), dy.data_ptr(), None if ws is None else ws.data_ptr(),
+        dk.data_ptr(), n, h, wd, cin, cout, splits, per, _build.stream(x)), what)
     conv4x4_s2_wgrad.launches += 1
     return dk.reshape(4, 4, cin, cout).permute(3, 2, 0, 1)
 

@@ -18,7 +18,8 @@ failure exits nonzero, and there is no CPU fallback):
   1. device, torch and CUDA versions, nvidia-smi name and power limit;
   2. build the five CUDA libraries (six TPU kernels' counterparts) from
      adaptsegnet_tpu_torch/csrc (one nvcc each, started together), with
-     each kernel's registers and spill bytes from ptxas;
+     each kernel's registers and spill bytes from ptxas (the Hopper core's
+     conv_sm90_kernel variants, kernel 5's wgrad_sm90_kernel, the rest);
   3. hold kernel 1 against its plain PyTorch version on the card;
   4. full-width bf16 eval through make_eval_fn (kernel 1's main path):
      launch counts zeroed before, read after; kernel tail vs plain tail;
@@ -46,7 +47,9 @@ failure exits nonzero, and there is no CPU fallback):
      added) against
      its plain version at the train shapes, with its wrapper time, the
      host's enqueue time, its profiled device time, the plain version's
-     time, the library call's and its bound;
+     time, the library call's and its bound (the rows of kernels 2 and 3
+     name the tile that `tile_plan` chose, the wgrad's the pixel split
+     that `wgrad_plan` chose);
   9. the bf16 multi-level train step at 512x1024 (the train slice's main
      path): launch counts zeroed before 10 timed steps and read after,
      checked against the per-step counts; finite losses, loss_seg2 ~ ln 19
@@ -771,6 +774,14 @@ def kernel_cases(rng):
     from adaptsegnet_tpu_torch.ops.kernels import conv4x4_patch as k4
     from adaptsegnet_tpu_torch.ops.kernels import conv4x4_s2 as k5
 
+    def tile(m, cout):  # the plan's tile, where the checkout has one
+        plan = getattr(k2, "tile_plan", None)
+        return f" tile {'x'.join(map(str, plan(m, cout)))}" if plan else ""
+
+    def splits(m, rows, cout):
+        plan = getattr(k5, "wgrad_plan", None)
+        return " splits {} x {} px".format(*plan(m, rows, cout)) if plan else ""
+
     cl = torch.channels_last
     cases = {name: [] for name in REPLACES}
     cases.update({f"{name}/f32": [] for name in REPLACES
@@ -782,7 +793,7 @@ def kernel_cases(rng):
             x = _bf16(rng, (n, h, wd, c))
             w = _bf16(rng, (c, c, 3, 3), 0.02)
             cases[key].append((
-                label,
+                label + tile(n * h * wd, c),
                 lambda x=x, w=w, d=d, nb=nb: k2.conv3x3_dil_batched_fwd(x, w, d, nb),
                 lambda x=x, w=w, d=d: k2.conv3x3_dil_plain(x, w, d),
                 lambda x=x, w=w.contiguous(memory_format=cl), d=d: F.conv2d(
@@ -795,6 +806,7 @@ def kernel_cases(rng):
         flops = 2 * x.numel() * 9 * c
         nbytes = 2 * (2 * x.numel() + w.numel())
         wcl = w.contiguous(memory_format=cl)
+        label += tile(x.numel() // c, c)
         cases["conv3x3_dil_fwd"].append((
             label, lambda x=x, w=w, d=d: k2.conv3x3_dil_fwd(x, w, d),
             lambda x=x, w=w, d=d: k2.conv3x3_dil_plain(x, w, d),
@@ -829,7 +841,8 @@ def kernel_cases(rng):
                 s, w, _nchw(dy), 2, 1),
             flops, io, False))
         cases["conv4x4_s2_wgrad"].append((
-            label, lambda x=x, dy=dy: k5.conv4x4_s2_wgrad(x, dy),
+            label + splits(dy.numel() // cout, 16 * cin, cout),
+            lambda x=x, dy=dy: k5.conv4x4_s2_wgrad(x, dy),
             lambda x=x, dy=dy: k5.conv4x4_s2_wgrad_plain(x, dy),
             lambda x=x, dy=dy, s=tuple(w.shape): conv2d_weight(
                 _nchw(x), s, _nchw(dy), 2, 1),

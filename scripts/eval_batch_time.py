@@ -15,7 +15,7 @@ Oracle (DeeplabSingle, 65x129 logit maps) on one batch of 2, as
 by CUDA events over 10 rounds after 3 warm-up rounds, kernel launches per
 batch by wrapper, and from a torch.profiler window of 3 rounds the
 device-busy ms per batch, the device ms of the implicit-GEMM conv kernels
-(`conv_sm90_kernel`, `conv_igemm_kernel`: kernel 3 on this path), with
+(`conv_sm90_kernel`: kernel 3 on this path), with
 the card's nvidia-smi name, power limit and SM clock, read right after
 that window.
 Put two checkouts' runs in one call, in turns (A, B, B, A), to compare
@@ -83,7 +83,7 @@ def time_model(name: str, batch: int) -> dict:
               if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
     busy = sum(e.device_time_total for e in device) / 3e3
     igemm = sum(e.device_time_total for e in device
-                if "conv_sm90_kernel" in e.key or "conv_igemm_kernel" in e.key) / 3e3
+                if "conv_sm90_kernel" in e.key) / 3e3
     del model, eval_fn
     torch.cuda.empty_cache()
     return {"model": name, "batch": batch,

@@ -137,7 +137,7 @@ def test_split_k_model_matches_pallas_and_plain(rng, shape, with_bias):
 
 def test_kmajor_weights_are_the_old_matrices_transposed(rng):
     """The Hopper core's K-major weights against the (K, Cout) matrices the
-    wmma core reads (kernel 2's layout, kernel 5's before)."""
+    earlier wmma core read (kernels 2 and 5 before the Hopper core)."""
     w3 = torch.from_numpy(rng.standard_normal((32, 64, 3, 3)).astype(np.float32))
     old3 = w3.permute(2, 3, 1, 0).reshape(9 * 64, 32)
     assert torch.equal(k3.kmajor_weights(w3), old3.T)
@@ -146,7 +146,7 @@ def test_kmajor_weights_are_the_old_matrices_transposed(rng):
     assert torch.equal(k5.kmajor_weights(w5), old5.T)
     np.testing.assert_array_equal(
         k5.kmajor_weights(w5)[5, (2 * 4 + 3) * 64 + 7].item(), w5[5, 7, 2, 3].item())
-    # the wmma core's dgrad matrices, (4, 4*Cout, Cin), row block 2a + b
+    # the earlier wmma core's dgrad matrices, (4, 4*Cout, Cin), row block 2a + b
     w6 = w5.reshape(24, 64, 2, 2, 2, 2).permute(3, 5, 2, 4, 0, 1).flip(0, 1)
     old = w6.reshape(4, 4 * 24, 64)
     kmaj = k5.dgrad_weights(w5)                               # (4, Cin, 4*Cout)
