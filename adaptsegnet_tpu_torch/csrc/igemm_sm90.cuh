@@ -3,9 +3,10 @@
 // a cp.async gather, in a ring of shared-memory stages governed by
 // mbarriers. Serves kernels 2 and 3 (csrc/conv3x3_dil.cu: the train path's
 // 3x3 forward and dgrad, the eval path's batched forward) and kernel 5's
-// forward and dgrad (csrc/conv4x4_s2.cu); kernel 5's wgrad is a kernel of
-// its own built from this file's pieces (the ring, the MN-major descriptor,
-// the transposed wgmma).
+// forward and dgrad (csrc/conv4x4_s2.cu); kernel 5's wgrad and the three
+// directions of kernel 4 (csrc/conv4x4_patch.cu) are kernels of their own
+// built from this file's pieces (the ring, the descriptors, TMA, cp.async,
+// the narrow and transposed wgmma shapes).
 //
 // out[M, Ncols] = A[M, K] @ B[K, Ncols] with A never materialised (row m of
 // A is the Cs channels of one source pixel per tap, read from the NHWC
@@ -134,6 +135,30 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                "l"(src), "r"(pred ? 16 : 0)
                : "memory");
 }
+// 4 bytes, zero-filled where !pred (cached in L1: neighbours reread it).
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(pred ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// Named barrier `id` (1-15; 0 is __syncthreads) over `count` threads.
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+// Make this thread's generic-proxy shared-memory writes visible to the
+// async proxy (wgmma, TMA).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
 __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
                                             uint32_t bar, int c0, int c1,
                                             int c2) {
@@ -142,6 +167,17 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       "bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
       : "memory");
 }
 
@@ -255,6 +291,46 @@ __device__ __forceinline__ void wgmma_m64n256k16(float* d, uint64_t da,
         "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
         "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d[64 x 64] += A[64 x 16] @ B[16 x 64]^T, both K-major (kTrans 0) or both
+// MN-major (kTrans 1).
+template <int kTrans = 0>
+__device__ __forceinline__ void wgmma_m64n64k16(float* d, uint64_t da,
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"  // scale-d 1: accumulate
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %35;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1), "n"(kTrans));
+}
+
+// d[64 x 32] += A[64 x 16] @ B[16 x 32]^T, both K-major.
+__device__ __forceinline__ void wgmma_m64n32k16(float* d, uint64_t da,
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"  // scale-d 1: accumulate
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
       : "l"(da), "l"(db), "r"(1));
 }
 

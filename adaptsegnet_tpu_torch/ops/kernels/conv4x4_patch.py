@@ -7,14 +7,19 @@ TPU version takes the four stride-2 parity phases of the padded map, a
 layout made for the TPU's lanes; the port's producer
 (ops/resize.py::upsample_softmax_planar) emits the dense (N, C, H, W) map,
 and the kernels read it with the conv padding applied on load. The CUDA
-source is csrc/conv4x4_patch.cu; its note gives the design.
+source is csrc/conv4x4_patch.cu (on csrc/igemm_sm90.cuh's pieces); its note
+gives the design. Bytes bound every direction (~36.7 MB, 10.97 us at
+3.35 TB/s at 512x1024).
 
 Three wrappers, each with its own launch count:
   conv4x4_patch_fwd(x, w, b)   (N, C, H, W) planar -> (N, H/2, W/2, 64) NHWC
-                               bf16, f32 bias added before the one rounding;
-  conv4x4_patch_dgrad(dy, w, hw)  -> dx (N, C, H, W) planar bf16;
-  conv4x4_patch_wgrad(x, dy)   -> dW (64, C, 4, 4) f32 (split-K, partials
-                               summed in order).
+                               bf16, f32 bias added before the one rounding
+                               (weights: OIHW reshaped, K-major, no copy);
+  conv4x4_patch_dgrad(dy, w, hw)  -> dx (N, C, H, W) planar bf16 (the
+                               parity-class weights of
+                               conv4x4_s2.dgrad_weights, one copy);
+  conv4x4_patch_wgrad(x, dy)   -> dW (64, C, 4, 4) f32 (the pixels split by
+                               `wgrad_plan`, partials summed in order).
 A CPU tensor takes the plain PyTorch version (f32 convolutions of the bf16
 values); a CUDA tensor launches the kernel or raises.
 """
@@ -29,11 +34,13 @@ import torch.nn.functional as F
 from torch.nn.grad import conv2d_input, conv2d_weight
 
 from adaptsegnet_tpu_torch.ops.kernels import _build
+from adaptsegnet_tpu_torch.ops.kernels import conv4x4_s2 as k5
 
 COUT = 64        # the kernel's output channels (the discriminator's ndf)
-MAX_C = 20       # 16 * C must fit the kernel's 320 patch columns
-_KP = 320
-_WGRAD_SPLITS = 128
+MAX_C = 20       # 16 * C must fit the kernel's five K steps of 64
+# The wgrad's K step: one row segment of 64 output pixels; the card's SMs
+# (H100 SXM), one wave of the wgrad's blocks.
+WGRAD_PX, SMS = 64, 132
 
 
 def supported(x_shape, cout: int, dtype: torch.dtype) -> bool:
@@ -70,7 +77,7 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("conv4x4_patch")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.asn_conv4x4_patch_fwd.argtypes = [p] * 4 + [i] * 4 + [p]
-    lib.asn_conv4x4_patch_wgrad.argtypes = [p] * 4 + [i] * 5 + [p]
+    lib.asn_conv4x4_patch_wgrad.argtypes = [p] * 4 + [i] * 6 + [p]
     lib.asn_conv4x4_patch_dgrad.argtypes = [p] * 3 + [i] * 4 + [p]
     for fn in (lib.asn_conv4x4_patch_fwd, lib.asn_conv4x4_patch_wgrad,
                lib.asn_conv4x4_patch_dgrad):
@@ -78,22 +85,22 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def pack_weights(w: torch.Tensor) -> torch.Tensor:
-    """OIHW (64, C, 4, 4) -> (320, 64): row c*16 + ky*4 + kx, zero rows
-    past 16*C."""
-    cout, c = w.shape[:2]
-    wp = w.permute(1, 2, 3, 0).reshape(16 * c, cout)
-    return F.pad(wp, (0, 0, 0, _KP - 16 * c)).contiguous()
+def kmajor_weights(w: torch.Tensor) -> torch.Tensor:
+    """OIHW (64, C, 4, 4) -> the forward's K-major (64, 16*C), column
+    c*16 + ky*4 + kx: a view of a contiguous w (the kernel's TMA zero-fills
+    K up to 320)."""
+    return w.reshape(w.shape[0], -1)
 
 
-def dgrad_weights(w: torch.Tensor) -> torch.Tensor:
-    """OIHW (64, C, 4, 4) -> (2, 512, 32): for row parity py, row
-    (a*4 + kx)*64 + co holds W[co, :, 1 - py + 2a, kx]; columns past C
-    zero. With ky = 2a + ry the parity's taps are those with ry = 1 - py."""
-    cout, c = w.shape[:2]
-    w5 = w.reshape(cout, c, 2, 2, 4)               # (co, c, a, ry, kx)
-    w5 = w5.permute(3, 2, 4, 0, 1).flip(0)         # (py, a, kx, co, c)
-    return F.pad(w5.reshape(2, 8 * cout, c), (0, 32 - c)).contiguous()
+def wgrad_plan(n: int, h: int, w: int) -> tuple[int, int]:
+    """(splits, per) of the wgrad's launch at input (n, C, h, w): its K
+    steps are the row segments of WGRAD_PX output pixels (the last of a
+    row masked), split into the most ranges one wave of blocks holds (each
+    block covers all 16*C x 64 of dW); per is the steps in each range,
+    every step in exactly one range, none empty."""
+    steps = n * (h // 2) * -(-(w // 2) // WGRAD_PX)
+    per = -(-steps // min(steps, SMS))
+    return -(-steps // per), per
 
 
 def conv4x4_patch_fwd(x: torch.Tensor, w: torch.Tensor,
@@ -104,13 +111,13 @@ def conv4x4_patch_fwd(x: torch.Tensor, w: torch.Tensor,
     n, c, h, wd = x.shape
     if tuple(w.shape) != (COUT, c, 4, 4) or not supported(x.shape, COUT, x.dtype):
         raise ValueError(f"{what}: unsupported {tuple(x.shape)}, {tuple(w.shape)}")
-    wpk = pack_weights(w)
-    _build.check_operands(what, x.device, x=x, w=wpk)
+    wt = kmajor_weights(w)
+    _build.check_operands(what, x.device, x=x, w=wt)
     bias = (torch.zeros(COUT, device=x.device) if b is None
             else b.to(x.device, torch.float32).contiguous())
     out = torch.empty((n, h // 2, wd // 2, COUT), dtype=x.dtype, device=x.device)
     _build.raise_on(_library().asn_conv4x4_patch_fwd(
-        x.data_ptr(), wpk.data_ptr(), bias.data_ptr(), out.data_ptr(),
+        x.data_ptr(), wt.data_ptr(), bias.data_ptr(), out.data_ptr(),
         n, c, h, wd, _build.stream(x)), what)
     conv4x4_patch_fwd.launches += 1
     return out
@@ -129,11 +136,11 @@ def conv4x4_patch_dgrad(dy: torch.Tensor, w: torch.Tensor,
             or not supported((n, c, h, wd), cout, dy.dtype)):
         raise ValueError(f"{what}: unsupported {tuple(dy.shape)}, "
                          f"{tuple(w.shape)} -> {hw}")
-    wpy = dgrad_weights(w)
-    _build.check_operands(what, dy.device, dy=dy, w=wpy)
+    wt = k5.dgrad_weights(w)
+    _build.check_operands(what, dy.device, dy=dy, w=wt)
     dx = torch.empty((n, c, h, wd), dtype=dy.dtype, device=dy.device)
     _build.raise_on(_library().asn_conv4x4_patch_dgrad(
-        dy.data_ptr(), wpy.data_ptr(), dx.data_ptr(), n, c, h, wd,
+        dy.data_ptr(), wt.data_ptr(), dx.data_ptr(), n, c, h, wd,
         _build.stream(dy)), what)
     conv4x4_patch_dgrad.launches += 1
     return dx
@@ -149,14 +156,15 @@ def conv4x4_patch_wgrad(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     if (tuple(dy.shape) != (n, h // 2, wd // 2, COUT)
             or not supported(x.shape, COUT, x.dtype)):
         raise ValueError(f"{what}: unsupported {tuple(x.shape)}, {tuple(dy.shape)}")
-    ws = torch.empty((_WGRAD_SPLITS, _KP, COUT), dtype=torch.float32,
-                     device=x.device)
-    dk = torch.empty((_KP, COUT), dtype=torch.float32, device=x.device)
+    splits, per = wgrad_plan(n, h, wd)
+    ws = (torch.empty((splits, 16 * c, COUT), dtype=torch.float32,
+                      device=x.device) if splits > 1 else None)
+    dk = torch.empty((16 * c, COUT), dtype=torch.float32, device=x.device)
     _build.raise_on(_library().asn_conv4x4_patch_wgrad(
-        x.data_ptr(), dy.data_ptr(), ws.data_ptr(), dk.data_ptr(),
-        n, c, h, wd, _WGRAD_SPLITS, _build.stream(x)), what)
+        x.data_ptr(), dy.data_ptr(), None if ws is None else ws.data_ptr(),
+        dk.data_ptr(), n, c, h, wd, splits, per, _build.stream(x)), what)
     conv4x4_patch_wgrad.launches += 1
-    return dk[:16 * c].reshape(c, 4, 4, COUT).permute(3, 0, 1, 2)
+    return dk.reshape(c, 4, 4, COUT).permute(3, 0, 1, 2)
 
 
 conv4x4_patch_fwd.launches = 0

@@ -19,7 +19,8 @@ failure exits nonzero, and there is no CPU fallback):
   2. build the five CUDA libraries (six TPU kernels' counterparts) from
      adaptsegnet_tpu_torch/csrc (one nvcc each, started together), with
      each kernel's registers and spill bytes from ptxas (the Hopper core's
-     conv_sm90_kernel variants, kernel 5's wgrad_sm90_kernel, the rest);
+     conv_sm90_kernel variants, kernel 5's wgrad_sm90_kernel, kernel 4's
+     fwd_kernel, dgrad_kernel and wgrad_kernel, the rest);
   3. hold kernel 1 against its plain PyTorch version on the card;
   4. full-width bf16 eval through make_eval_fn (kernel 1's main path):
      launch counts zeroed before, read after; kernel tail vs plain tail;
@@ -48,8 +49,11 @@ failure exits nonzero, and there is no CPU fallback):
      its plain version at the train shapes, with its wrapper time, the
      host's enqueue time, its profiled device time, the plain version's
      time, the library call's and its bound (the rows of kernels 2 and 3
-     name the tile that `tile_plan` chose, the wgrad's the pixel split
-     that `wgrad_plan` chose);
+     name the tile that `tile_plan` chose, the wgrads' the pixel split
+     that their `wgrad_plan` chose); then kernel 4's three directions,
+     checked but not timed, at shapes off the main path (masked last tiles
+     of a row, W not a multiple of 8, two images, a wgrad split of two
+     steps);
   9. the bf16 multi-level train step at 512x1024 (the train slice's main
      path): launch counts zeroed before 10 timed steps and read after,
      checked against the per-step counts; finite losses, loss_seg2 ~ ln 19
@@ -782,6 +786,11 @@ def kernel_cases(rng):
         plan = getattr(k5, "wgrad_plan", None)
         return " splits {} x {} px".format(*plan(m, rows, cout)) if plan else ""
 
+    def k4_splits(n, h, wd):
+        plan = getattr(k4, "wgrad_plan", None)
+        return (" splits {} x {} segments of {} px".format(
+            *plan(n, h, wd), k4.WGRAD_PX) if plan else "")
+
     cl = torch.channels_last
     cases = {name: [] for name in REPLACES}
     cases.update({f"{name}/f32": [] for name in REPLACES
@@ -874,12 +883,45 @@ def kernel_cases(rng):
         lambda: conv2d_input((n, c, h, wd), w, _nchw(dy), 2, 1),
         flops, io, False))
     cases["conv4x4_patch_wgrad"].append((
-        "conv1", lambda: k4.conv4x4_patch_wgrad(x, dy),
+        "conv1" + k4_splits(n, h, wd), lambda: k4.conv4x4_patch_wgrad(x, dy),
         lambda: k4.conv4x4_patch_wgrad_plain(x, dy),
         lambda: conv2d_weight(x, tuple(w.shape), _nchw(dy), 2, 1),
         flops, io + 2 * w.numel(), True))
     warp_cases(rng, cases)
     return cases
+
+
+# Kernel 4 off the main path's shape, (N, H, W) of the 19-channel map:
+# masked last tiles of a row (Wo = 132: 128 + 4 pixels; the dgrad's
+# 64-column tiles at Wo = 70), two images, W not a multiple of 8, and a
+# wgrad split of two 64-pixel segments (140 segments).
+K4_EDGES = ((1, 16, 24), (1, 8, 264), (2, 6, 140), (1, 10, 26), (1, 280, 16))
+
+
+def check_kernel4_edges(rng) -> None:
+    """Kernel 4's three directions against their plain versions at
+    K4_EDGES, with phase 8's tolerances (not timed)."""
+    from adaptsegnet_tpu_torch.ops.kernels import conv4x4_patch as k4
+
+    worst = [0.0, 0.0, 0.0]
+    for n, h, wd in K4_EDGES:
+        x = torch.softmax(_bf16(rng, (n, 19, h, wd), 2.0).float(), 1).to(
+            torch.bfloat16)
+        dy = _bf16(rng, (n, h // 2, wd // 2, 64))
+        w = _bf16(rng, (64, 19, 4, 4), 0.05)
+        b = _bf16(rng, (64,), 0.1)
+        for d, (got, ref, f32_out) in enumerate((
+                (k4.conv4x4_patch_fwd(x, w, b),
+                 k4.conv4x4_patch_fwd_plain(x, w, b), False),
+                (k4.conv4x4_patch_dgrad(dy, w, (h, wd)),
+                 k4.conv4x4_patch_dgrad_plain(dy, w, (h, wd)), False),
+                (k4.conv4x4_patch_wgrad(x, dy),
+                 k4.conv4x4_patch_wgrad_plain(x, dy), True))):
+            torch.cuda.synchronize()
+            worst[d] = max(worst[d], compare_outputs(got, ref, f32_out)[1])
+    print(f"phase 8: conv4x4_patch at (N, H, W) in {list(K4_EDGES)}: fwd / "
+          f"dgrad / wgrad within tolerance, max abs err {worst[0]:.2e} / "
+          f"{worst[1]:.2e} / {worst[2]:.2e} of max |plain|")
 
 
 def compare_outputs(got, ref, f32_out: bool) -> tuple[float, float]:
@@ -1015,6 +1057,7 @@ def phase_train_kernels(smi: str) -> dict:
             "bound_by": "operations" if tot["ops_ms"] >= tot["bytes_ms"] else "bytes",
             "library_ms": tot["library_ms"],
         }
+    check_kernel4_edges(rng)
     return rows
 
 

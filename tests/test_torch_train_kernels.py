@@ -175,21 +175,25 @@ def test_kernel_weight_layouts(rng):
                     np.testing.assert_array_equal(
                         wcls[2 * py + px, :, t * 8:(t + 1) * 8].numpy(),
                         w[:, :, 1 - py + 2 * a, 1 - px + 2 * b].numpy().T)
+    # kernel 4: the forward's K-major (64, 16*C) weights, column
+    # c*16 + ky*4 + kx, a view of OIHW; the dgrad's parity classes at C = 19
+    # (the same matrices as kernel 5's, N = C padded to 32 by the tensor map)
     w4 = torch.from_numpy(rng.standard_normal((64, 19, 4, 4)).astype(np.float32))
-    wpy = k4.dgrad_weights(w4)
-    assert wpy.shape == (2, 512, 32)
+    wt4 = k4.kmajor_weights(w4)
+    assert wt4.shape == (64, 304) and wt4.data_ptr() == w4.data_ptr()
+    for c, ky, kx in ((0, 0, 0), (5, 2, 3), (18, 3, 1)):
+        np.testing.assert_array_equal(wt4[:, c * 16 + ky * 4 + kx].numpy(),
+                                      w4[:, c, ky, kx].numpy())
+    wcls4 = k5.dgrad_weights(w4)
+    assert wcls4.shape == (4, 19, 256) and wcls4.is_contiguous()
     for py in (0, 1):
-        for a in (0, 1):
-            for kx in range(4):
-                r = (a * 4 + kx) * 64
-                np.testing.assert_array_equal(
-                    wpy[py, r:r + 64, :19].numpy(),
-                    w4[:, :, 1 - py + 2 * a, kx].numpy())
-    assert not wpy[..., 19:].any()
-    wpk = k4.pack_weights(w4)
-    assert wpk.shape == (320, 64) and not wpk[304:].any()
-    np.testing.assert_array_equal(
-        wpk[5 * 16 + 2 * 4 + 3].numpy(), w4[:, 5, 2, 3].numpy())
+        for px in (0, 1):
+            for a in (0, 1):
+                for b in (0, 1):
+                    t = 2 * a + b
+                    np.testing.assert_array_equal(
+                        wcls4[2 * py + px, :, t * 64:(t + 1) * 64].numpy(),
+                        w4[:, :, 1 - py + 2 * a, 1 - px + 2 * b].numpy().T)
 
 
 def test_cpu_tensors_take_the_plain_versions(rng):
