@@ -15,12 +15,26 @@ launch count:
   upsample_warp_fwd(x, iy, ix)       x (N, h, w, C), iy/ix (N, H, W) f32 ->
                                      planar (N, C, H, W) in x's dtype;
   upsample_warp_dx(g, iy, ix, hw)    planar cotangent -> dx (N, h, w, C) in
-                                     g's dtype (f32 atomics inside, so the
-                                     sum order varies from run to run);
+                                     g's dtype;
   upsample_warp_dflow(x, g, iy, ix)  -> (diy, dix) (N, H, W) f32.
-Every weight stays f32 and each output is rounded once (the Pallas kernel
-rounds the x-direction weights to bf16 for the MXU in bf16; that
-difference is intended, ROADMAP.md §3).
+The forward and dx work on tiles of output pixels (`tile_plan`), each with
+a window of lo-res cells in shared memory: the forward gathers from it; dx
+adds into it in fixed point (the card adds no f32 in shared memory
+natively) and then adds its non-zero cells to an f64 buffer in device
+memory, which a second kernel rounds into dx. A product w g goes to the
+window as two int32 words, in units of 2^-fix and 2^-2fix of the tile's
+largest |g| rounded up to a power of two (`fix_bits`: 21 at the train
+shape, where the busiest window cell takes ~400 products), when they hold
+it within 2^-24 of its value; a smaller product goes to the f64 buffer as
+the f32 product. So each cell of dx is within 2^-24 of the sum of its
+products' magnitudes of their exact sum, before its own rounding, however g
+spreads; only the speed depends on the spread. A pixel whose cells leave
+the window (a flow that moves it more than the margin, a clamped sample)
+reads or adds in device memory instead, so any flow gives the same
+function. The f64 adds come in no fixed order, so dx is not bit-reproducible
+in general. Every weight stays f32 and each output is rounded once (the
+Pallas kernel rounds the x-direction weights to bf16 for the MXU in bf16;
+that difference is intended, ROADMAP.md §3).
 
 The plain PyTorch version `upsample_warp_plain` is the same function as a
 differentiable 3x3-tap gather in f32; its autograd gives dx and d(iy, ix)
@@ -33,6 +47,7 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from adaptsegnet_tpu_torch.ops.kernels import _build
@@ -43,6 +58,69 @@ def scales(in_hw: tuple[int, int], out_hw: tuple[int, int]) -> tuple[float, floa
     (h, w), (oh, ow) = in_hw, out_hw
     return ((h - 1) / (oh - 1) if oh > 1 else 0.0,
             (w - 1) / (ow - 1) if ow > 1 else 0.0)
+
+
+TILE_W = 256        # output columns of a tile: dx's 64 runs of 4 pixels
+MARGIN = 4          # lo-res cells of window beyond the identity grid's reach
+# Most shared memory dx's window may take: per cell two int32 sums per
+# channel (C padded to even) and one int32 count. With the list of a tile's
+# pixels (16 KB) it stays within the 227 KB of one H100 block.
+WINDOW_BYTES = 192 * 1024
+# About one 1024-thread block on each of the H100's 132 SMs. A constant, not
+# the device's count: the kernels build for sm_90a only, and the plan stays
+# a pure function of the shape.
+TARGET_TILES = 128
+
+
+@functools.lru_cache(maxsize=64)
+def tile_plan(n: int, in_hw: tuple[int, int], out_hw: tuple[int, int],
+              c: int) -> tuple[int, int, int, int, int]:
+    """(th, tw, m, wh, ww): tiles of th x tw output pixels, and a window of
+    wh x ww lo-res cells (all C channels, padded to an even count) around
+    the cells that the tile's identity grid reaches with its 3x3 taps, m
+    cells beyond them on each side.
+
+    tw is TILE_W (or the width rounded up to a multiple of 8); th is the
+    tallest of 16, 8, 4, 2 that still gives TARGET_TILES tiles (else 1).
+    The identity bases of th consecutive rows span floor((th - 1) s) + 1
+    cells at most, the taps add 2, f32 rounding of r * s at most 1: so
+    wh = floor((th - 1) s_y) + 5 + 2 m. The margin shrinks until dx's window
+    (`window_bytes`) fits in WINDOW_BYTES; where none fits, the window is
+    empty and every pixel takes the device-memory path."""
+    (h, w), (oh, ow) = in_hw, out_hw
+    sy, sx = scales(in_hw, out_hw)
+    tw = min(TILE_W, -(-ow // 8) * 8)
+    tiles_x = -(-ow // tw)
+    th = next((t for t in (16, 8, 4, 2)
+               if n * -(-oh // t) * tiles_x >= TARGET_TILES), 1)
+    for m in range(MARGIN, -1, -1):
+        wh = int(np.floor((th - 1) * sy)) + 5 + 2 * m
+        ww = int(np.floor((tw - 1) * sx)) + 5 + 2 * m
+        if window_bytes(wh, ww, c) <= WINDOW_BYTES:
+            return th, tw, m, wh, ww
+    return th, tw, 0, 0, 0
+
+
+def window_bytes(wh: int, ww: int, c: int) -> int:
+    """dx's shared window of wh x ww cells: two int32 sums per channel (C
+    padded to even) and one int32 count per cell."""
+    return wh * ww * (2 * (c + c % 2) + 1) * 4
+
+
+def fix_bits(n: int) -> int:
+    """csrc/upsample_warp.cu::fix_bits: dx's fixed-point bits below a tile's
+    largest |g| when its busiest window cell takes n products (one per
+    in-window pixel whose 3x3 holds it), each at most 2^fix units: with
+    fix = 30 - ceil(log2(n)) (at most 22) no int32 sum passes 2^30."""
+    return min(22, 30 - (max(n, 1) - 1).bit_length())
+
+
+def keep_units(fix: int) -> int:
+    """csrc/upsample_warp.cu::add_product: the least |hi| (in units of
+    2^-fix of the tile's scale) that dx's window takes; hi + lo 2^-fix is
+    then within 2^-26 + 2^-(fix + 1) units of the product, less than 2^-24
+    of it. A smaller product goes to device memory."""
+    return 1 << (24 - fix)
 
 
 # ------------------------------------------------------------ plain version
@@ -112,10 +190,10 @@ def upsample_warp_dflow_plain(x, g, iy, ix):
 def _library() -> ctypes.CDLL:
     lib = _build.load("upsample_warp")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    tail = [i] * 7 + [f, f, p]  # is_bf16, n, h, w, c, oh, ow, sy, sx, stream
-    lib.asn_upsample_warp_fwd.argtypes = [p] * 4 + tail
-    lib.asn_upsample_warp_dx.argtypes = [p] * 5 + tail
-    lib.asn_upsample_warp_dflow.argtypes = [p] * 6 + tail
+    tail = [i] * 7 + [f, f]  # is_bf16, n, h, w, c, oh, ow, sy, sx
+    lib.asn_upsample_warp_fwd.argtypes = [p] * 4 + tail + [i] * 5 + [p]
+    lib.asn_upsample_warp_dx.argtypes = [p] * 5 + tail + [i] * 5 + [p]
+    lib.asn_upsample_warp_dflow.argtypes = [p] * 6 + tail + [p]
     for fn in (lib.asn_upsample_warp_fwd, lib.asn_upsample_warp_dx,
                lib.asn_upsample_warp_dflow):
         fn.restype = i
@@ -146,9 +224,9 @@ def _check(what: str, device: torch.device, dtype: torch.dtype, n: int,
                              f"{t.dtype} {tuple(t.shape)}")
 
 
-def _tail(dtype, n, h, w, c, oh, ow, stream):
+def _tail(dtype, n, h, w, c, oh, ow):
     sy, sx = scales((h, w), (oh, ow))
-    return (int(dtype == torch.bfloat16), n, h, w, c, oh, ow, sy, sx, stream)
+    return (int(dtype == torch.bfloat16), n, h, w, c, oh, ow, sy, sx)
 
 
 def upsample_warp_fwd(x: torch.Tensor, iy: torch.Tensor,
@@ -165,14 +243,20 @@ def upsample_warp_fwd(x: torch.Tensor, iy: torch.Tensor,
     out = torch.empty((n, c, oh, ow), dtype=x.dtype, device=x.device)
     _build.raise_on(_library().asn_upsample_warp_fwd(
         x.data_ptr(), iy.data_ptr(), ix.data_ptr(), out.data_ptr(),
-        *_tail(x.dtype, n, h, w, c, oh, ow, _build.stream(x))), what)
+        *_tail(x.dtype, n, h, w, c, oh, ow),
+        *tile_plan(n, (h, w), (oh, ow), c), _build.stream(x)), what)
     upsample_warp_fwd.launches += 1
     return out
 
 
 def upsample_warp_dx(g: torch.Tensor, iy: torch.Tensor, ix: torch.Tensor,
                      hw: tuple[int, int]) -> torch.Tensor:
-    """Planar cotangent g (N, C, H, W) -> dx (N, h, w, C) in g's dtype."""
+    """Planar cotangent g (N, C, H, W) -> dx (N, h, w, C) in g's dtype. The
+    kernel sums into an f64 (N, h, w, C) buffer that starts at zero, and a
+    second kernel rounds it once into dx. Each cell is within 2^-24 of the
+    sum of its products' magnitudes of their exact sum, before that
+    rounding; not bit-reproducible in general (f64 adds in no fixed
+    order)."""
     what = "upsample_warp_dx"
     hw = (int(hw[0]), int(hw[1]))
     if not _build.on_cuda(g, what):
@@ -181,12 +265,12 @@ def upsample_warp_dx(g: torch.Tensor, iy: torch.Tensor, ix: torch.Tensor,
     h, w = hw
     _check(what, g.device, g.dtype, n, hw, (oh, ow), c, {"g": g},
            {"iy": iy, "ix": ix})
-    acc = torch.zeros((n, c, h, w), dtype=torch.float32, device=g.device)
+    acc = torch.zeros((n, h, w, c), dtype=torch.float64, device=g.device)
     dx = torch.empty((n, h, w, c), dtype=g.dtype, device=g.device)
     _build.raise_on(_library().asn_upsample_warp_dx(
         g.data_ptr(), iy.data_ptr(), ix.data_ptr(), acc.data_ptr(),
-        dx.data_ptr(), *_tail(g.dtype, n, h, w, c, oh, ow, _build.stream(g))),
-        what)
+        dx.data_ptr(), *_tail(g.dtype, n, h, w, c, oh, ow),
+        *tile_plan(n, hw, (oh, ow), c), _build.stream(g)), what)
     upsample_warp_dx.launches += 1
     return dx
 
@@ -209,7 +293,7 @@ def upsample_warp_dflow(x: torch.Tensor, g: torch.Tensor, iy: torch.Tensor,
     _build.raise_on(_library().asn_upsample_warp_dflow(
         x.data_ptr(), g.data_ptr(), iy.data_ptr(), ix.data_ptr(),
         diy.data_ptr(), dix.data_ptr(),
-        *_tail(x.dtype, n, h, w, c, oh, ow, _build.stream(x))), what)
+        *_tail(x.dtype, n, h, w, c, oh, ow), _build.stream(x)), what)
     upsample_warp_dflow.launches += 1
     return diy, dix
 

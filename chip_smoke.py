@@ -21,7 +21,11 @@ failure exits nonzero, and there is no CPU fallback):
      each kernel's registers and spill bytes from ptxas (the Hopper core's
      conv_sm90_kernel variants, kernel 5's wgrad_sm90_kernel, kernel 4's
      fwd_kernel, dgrad_kernel and wgrad_kernel, the rest);
-  3. hold kernel 1 against its plain PyTorch version on the card;
+  3. hold kernel 1 against its plain PyTorch version on the card (five
+     shapes, 5 to 100 channels, two dtypes, the first-index tie), then time
+     it at the eval shape in bf16 and f32, with 19 classes and with 16, as
+     phase 8 times its kernels (wrapper, host enqueue, profiled device
+     time, plain, F.interpolate + argmax, bound);
   4. full-width bf16 eval through make_eval_fn (kernel 1's main path):
      launch counts zeroed before, read after; kernel tail vs plain tail;
      four single images (no kernel-3 launch), then the same four as one
@@ -45,7 +49,10 @@ failure exits nonzero, and there is no CPU fallback):
      conv4x4_patch fwd/dgrad/wgrad at D conv1; 6: upsample_warp fwd/dx/
      d-flow at (1, 64, 128, 19) -> 512x1024 in bf16 and f32, on the
      Warper's flow with clamped-edge and exact-boundary sample positions
-     added) against
+     added, each line with the share of pixels in their tile's window;
+     then, checked and timed but not in the kernels line, on a raw flow
+     drawn N(0, 0.5) that moves most pixels out of their window and at
+     the edge shape (2, 33, 65, 19) -> 257x519) against
      its plain version at the train shapes, with its wrapper time, the
      host's enqueue time, its profiled device time, the plain version's
      time, the library call's and its bound (the rows of kernels 2 and 3
@@ -53,7 +60,9 @@ failure exits nonzero, and there is no CPU fallback):
      that their `wgrad_plan` chose); then kernel 4's three directions,
      checked but not timed, at shapes off the main path (masked last tiles
      of a row, W not a multiple of 8, two images, a wgrad split of two
-     steps);
+     steps); last, kernel 6's dx cell by cell, each by its own magnitude,
+     on the Warper's flow with cotangents that spread by 1e4 and more
+     within a tile;
   9. the bf16 multi-level train step at 512x1024 (the train slice's main
      path): launch counts zeroed before 10 timed steps and read after,
      checked against the per-step counts; finite losses, loss_seg2 ~ ln 19
@@ -292,7 +301,20 @@ def hold_batch_against_singles(forward, images, batch_masks, singles) -> str:
             f"the image's largest logit difference + 1e-2)")
 
 
-def phase_kernels(results: dict) -> None:
+def upsample_argmax_work(logits, out_hw) -> tuple[int, int]:
+    """(operations, bytes) of the least work of kernel 1's function: read
+    the logits and the 4 weight tables once, write the mask once; per
+    output pixel and channel a width lerp (mul + fma = 3 flops) and a
+    compare, per output row, needed source column and channel a height
+    lerp (3 flops)."""
+    n, h, w, c = logits.shape
+    oh, ow = out_hw
+    nbytes = (logits.numel() * logits.element_size() + n * oh * ow
+              + 8 * (2 * oh + 2 * ow))
+    return n * oh * ow * c * 4 + n * oh * w * c * 3, nbytes
+
+
+def phase_kernels(results: dict, smi: str) -> None:
     from adaptsegnet_tpu_torch.ops.kernels import (
         upsample_argmax,
         upsample_argmax_plain,
@@ -301,7 +323,8 @@ def phase_kernels(results: dict) -> None:
 
     rng = np.random.default_rng(SEED)
     cases = [((1, 64, 128, 19), EVAL_OUT), ((2, 8, 16, 19), (32, 256)),
-             ((1, 4, 8, 5), (4, 8))]
+             ((1, 4, 8, 5), (4, 8)), ((1, 64, 128, 16), EVAL_OUT),
+             ((2, 5, 7, 100), (17, 29))]
     before = upsample_argmax.launches
     launched, worst = 0, 0.0
     for shape, out_hw in cases:
@@ -330,6 +353,19 @@ def phase_kernels(results: dict) -> None:
           f"launch counter grew by {upsample_argmax.launches - before}, "
           f"expected {launched}")
     results["max_abs_err"] = worst
+    for shape, dtype in ((cases[0][0], torch.bfloat16), (cases[0][0], torch.float32),
+                         (cases[3][0], torch.bfloat16), (cases[3][0], torch.float32)):
+        x = torch.from_numpy(rng.standard_normal(shape).astype(  # timed
+            np.float32)).to("cuda", dtype)
+        ops, nbytes = upsample_argmax_work(x, EVAL_OUT)
+        times = time_kernel(
+            lambda: upsample_argmax(x, EVAL_OUT),
+            lambda: upsample_argmax_plain(x, EVAL_OUT),
+            lambda: F.interpolate(x.permute(0, 3, 1, 2).float(), EVAL_OUT,
+                                  mode="bilinear", align_corners=True)
+            .argmax(1).to(torch.uint8), ops, nbytes, PEAK_F32)
+        print(f"phase 3: upsample_argmax {tuple(x.shape)}->{EVAL_OUT} {dtype} "
+              f"(library: F.interpolate + argmax): {times['line']} [{smi}]")
 
 
 def build_models(dtypes):
@@ -579,23 +615,14 @@ def phase_timings(models, results: dict, smi: str) -> dict:
         print(f"phase 7: eval {name} profile: {profile_eval(lambda: fn(image))}")
 
     logits = results["eval_logits"]  # (1, 64, 128, 19) bf16 from phase 4
-    n, h, w, c = logits.shape
-    oh, ow = EVAL_OUT
     kernel_ms = cuda_ms(lambda: upsample_argmax(logits, EVAL_OUT), iters=200)
     plain_ms = cuda_ms(lambda: upsample_argmax_plain(logits, EVAL_OUT), iters=20)
     library_ms = cuda_ms(lambda: F.interpolate(
         logits.permute(0, 3, 1, 2).float(), EVAL_OUT, mode="bilinear",
         align_corners=True).argmax(1).to(torch.uint8), iters=20)
-    # Least work of the function: read the logits and the 4 weight tables
-    # once, write the mask once; per output pixel and channel a width lerp
-    # (mul + fma = 3 flops) and a compare, per output row, needed source
-    # column and channel a height lerp (3 flops). f32 on CUDA cores:
-    # 67 TFLOP/s peak; 3.35 TB/s HBM (H100 SXM data sheet).
-    bytes_moved = (logits.numel() * logits.element_size() + n * oh * ow
-                   + 8 * (2 * oh + 2 * ow))
-    ops = n * oh * ow * c * 4 + n * oh * w * c * 3
-    bytes_ms = bytes_moved / 3.35e12 * 1e3
-    ops_ms = ops / 67e12 * 1e3
+    ops, bytes_moved = upsample_argmax_work(logits, EVAL_OUT)
+    bytes_ms = bytes_moved / PEAK_BYTES * 1e3
+    ops_ms = ops / PEAK_F32 * 1e3
     bound_ms = max(bytes_ms, ops_ms)
     per_image = results["launches"]["upsample_argmax"] / 4
     print(f"phase 7: upsample_argmax {tuple(logits.shape)} bf16 -> {EVAL_OUT}: "
@@ -697,25 +724,103 @@ def _nchw(t):
     return t.permute(0, 3, 1, 2)
 
 
-def warp_cases(rng, cases):
-    """Kernel 6 in its three directions at the train geometry, bf16 (the
-    main path's, under the names of REPLACES) and f32 (under '<name>/f32',
-    checked and printed, not in the kernels line). The flow is the one
-    the main path gives the kernel: an 8-layer bf16 Warper's at init on a
-    preprocessed image (smooth, |flow| < ~0.1), with 64 pixels clamped at
-    each corner and 64 at each exact boundary (iy = H-1, ix = 0). Library: F.interpolate
-    (align_corners=True) then F.grid_sample (align_corners=True) in the
-    same dtype, forward; for dx and d-flow its autograd backward alone (a
-    retained graph, gradient with respect to x, or to the grid; the grid is
-    cast to the input's dtype, as grid_sample requires). Operations
-    counted per output pixel and channel: 9 fmas (fwd, dx), 9 fmas + the
-    two 9-term sums (d-flow); f32 on CUDA cores."""
-    from adaptsegnet_tpu_torch.models import Warper
+def window_share(n, hw, iy, ix) -> float:
+    """The share of output pixels whose 3x3 lo-res cells lie in their
+    tile's window (the rest take kernel 6's device-memory path), from the
+    checkout's tile_plan; nan where the checkout has none."""
     from adaptsegnet_tpu_torch.ops.kernels import upsample_warp as k6
+
+    plan = getattr(k6, "tile_plan", None)
+    if plan is None:
+        return float("nan")
+    out_hw = tuple(iy.shape[1:])
+    th, tw, m, wh, ww = plan(n, hw, out_hw, 19)
+    sy, sx = k6.scales(hw, out_hw)
+    rows = torch.arange(out_hw[0], device=iy.device)
+    cols = torch.arange(out_hw[1], device=iy.device)
+    y0 = torch.floor((rows // th * th).float() * sy).long() - m
+    x0 = torch.floor((cols // tw * tw).float() * sx).long() - m
+    by = torch.floor(torch.floor(iy) * sy).long() - y0.view(1, -1, 1)
+    bx = torch.floor(torch.floor(ix) * sx).long() - x0.view(1, 1, -1)
+    inside = (by >= 0) & (by <= wh - 3) & (bx >= 0) & (bx <= ww - 3)
+    return inside.float().mean().item()
+
+
+def warp_directions(cases, suffix, label, x, g, iy, ix) -> None:
+    """Kernel 6's three directions on x (N, h, w, C) and planar g at the
+    positions (iy, ix), under '<name><suffix>'. Library: F.interpolate
+    (align_corners=True) then F.grid_sample (align_corners=True) in x's
+    dtype, forward; for dx and d-flow its autograd backward alone (a
+    retained graph, gradient with respect to x, or to the grid; the grid is
+    cast to the input's dtype, as grid_sample requires). Operations counted
+    per output pixel and channel: 9 fmas (fwd, dx), 9 fmas + the two 9-term
+    sums (d-flow); f32 on CUDA cores. Bytes: x, g or the output, and the
+    coordinates, each once."""
+    from adaptsegnet_tpu_torch.ops.kernels import upsample_warp as k6
+
+    n, h, w, c = x.shape
+    out_hw = tuple(iy.shape[1:])
+    p = out_hw[0] * out_hw[1]
+    es = x.element_size()
+    f32 = x.dtype == torch.float32
+    grid = torch.stack([ix / (out_hw[1] - 1) * 2 - 1,
+                        iy / (out_hw[0] - 1) * 2 - 1], -1)
+    xn = x.permute(0, 3, 1, 2).contiguous()
+
+    def library(xin, gin):
+        up = F.interpolate(xin, out_hw, mode="bilinear", align_corners=True)
+        return F.grid_sample(up, gin.to(xin.dtype), mode="bilinear",
+                             padding_mode="zeros", align_corners=True)
+
+    label += f" ({window_share(n, (h, w), iy, ix):.4%} of pixels in their window)"
+    xr = xn.detach().requires_grad_(True)
+    lib_dx_out = library(xr, grid)
+    gr = grid.detach().requires_grad_(True)
+    lib_df_out = library(xn, gr)
+    coords, xb, gb = 8 * n * p, x.numel() * es, g.numel() * es
+    fma = 2 * 9 * n * p * c
+    cases.setdefault("upsample_warp_fwd" + suffix, []).append((
+        label, lambda: k6.upsample_warp_fwd(x, iy, ix),
+        lambda: k6.upsample_warp_fwd_plain(x, iy, ix),
+        lambda: library(xn, grid), fma, xb + coords + gb, f32))
+    cases.setdefault("upsample_warp_dx" + suffix, []).append((
+        label, lambda: k6.upsample_warp_dx(g, iy, ix, (h, w)),
+        lambda: k6.upsample_warp_dx_plain(g, iy, ix, (h, w)),
+        lambda: torch.autograd.grad(lib_dx_out, xr, g, retain_graph=True),
+        fma, gb + coords + xb, f32))
+    cases.setdefault("upsample_warp_dflow" + suffix, []).append((
+        label, lambda: torch.cat(k6.upsample_warp_dflow(x, g, iy, ix)),
+        lambda: torch.cat(k6.upsample_warp_dflow_plain(x, g, iy, ix)),
+        lambda: torch.autograd.grad(lib_df_out, gr, g, retain_graph=True),
+        fma + 2 * 2 * 9 * n * p, xb + gb + 2 * coords, True))
+
+
+# Kernel 6 off the main path, checked and timed but not in the kernels
+# line: a raw flow drawn N(0, 0.5) i.i.d. per pixel ('/wide': tanh moves
+# most pixels more than the plan's margin off the identity grid, so they
+# take the device-memory path), and an edge shape ('/edge': (2, 33, 65, 19)
+# -> 257x519, whose tiles are masked at the right and bottom and whose W is
+# no multiple of 8, so runs load and store by element) on a smooth flow of
+# N(0, 0.05) with clamped corners.
+WARP_EDGE = (2, (33, 65), (257, 519))
+
+
+def _positions(flow, out_hw):
     from adaptsegnet_tpu_torch.ops.upsample_warp import coords_from_flow
 
-    n, (h, w), c, (oh, ow) = 1, (64, 128), 19, TRAIN_IN
-    p = oh * ow
+    iy, ix = coords_from_flow(flow, out_hw)
+    return iy.contiguous(), ix.contiguous()
+
+
+def warper_positions():
+    """The sample positions the main path gives kernel 6 at the train
+    geometry: the flow of an 8-layer bf16 Warper at init on a preprocessed
+    image (|flow| < ~0.1; its last layer works at full resolution, so
+    neighbouring pixels move by a fraction of a cell each), with 64 pixels
+    clamped at each corner and 64 at each exact boundary (iy = H-1,
+    ix = 0)."""
+    from adaptsegnet_tpu_torch.models import Warper
+
     warper = Warper(dtype=torch.bfloat16, device="cuda",
                     generator=torch.Generator().manual_seed(SEED + 3))
     with torch.no_grad():
@@ -724,48 +829,100 @@ def warp_cases(rng, cases):
     del warper
     flow[:, :, 0, :64] = 8.0    # clamped at the bottom / right edges
     flow[:, :, 1, :64] = -8.0   # clamped at the top / left edges
-    iy, ix = coords_from_flow(flow, TRAIN_IN)
-    iy[:, 2, :64] = oh - 1.0
+    iy, ix = _positions(flow, TRAIN_IN)
+    iy[:, 2, :64] = TRAIN_IN[0] - 1.0
     ix[:, 3, :64] = 0.0
-    iy, ix = iy.contiguous(), ix.contiguous()
-    grid = torch.stack([ix / (ow - 1) * 2 - 1, iy / (oh - 1) * 2 - 1], -1)
+    return iy, ix
+
+
+def warp_cases(rng, cases):
+    """Kernel 6 in its three directions at the train geometry, bf16 (the
+    main path's, under the names of REPLACES) and f32 (under '<name>/f32',
+    checked and printed, not in the kernels line), at `warper_positions`.
+    Then the '/wide' and '/edge' cases above, bf16."""
+    def draw(shape, dtype):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to("cuda", dtype)
+
+    n, (h, w), c, (oh, ow) = 1, (64, 128), 19, TRAIN_IN
+    iy, ix = warper_positions()
     for dtype, suffix in ((torch.bfloat16, ""), (torch.float32, "/f32")):
-        es = 2 if dtype == torch.bfloat16 else 4
-        f32 = dtype == torch.float32
-        x = torch.from_numpy(rng.standard_normal((n, h, w, c)).astype(
-            np.float32)).to("cuda", dtype)
-        g = torch.from_numpy(rng.standard_normal((n, c, oh, ow)).astype(
-            np.float32)).to("cuda", dtype)
-        xn = x.permute(0, 3, 1, 2).contiguous()
+        warp_directions(cases, suffix, "512x1024", draw((n, h, w, c), dtype),
+                        draw((n, c, oh, ow), dtype), iy, ix)
+    wide = _positions(draw((n, 2, oh, ow), torch.float32) * 0.5, TRAIN_IN)
+    warp_directions(cases, "/wide", "512x1024 flow N(0, 0.5)",
+                    draw((n, h, w, c), torch.bfloat16),
+                    draw((n, c, oh, ow), torch.bfloat16), *wide)
+    en, ehw, eout = WARP_EDGE
+    flow = draw((en, 2) + eout, torch.float32) * 0.05
+    flow[:, :, 0, :8] = 8.0
+    flow[:, :, 1, :8] = -8.0
+    warp_directions(cases, "/edge", f"({en}, {ehw[0]}, {ehw[1]}, {c}) -> "
+                    f"{eout[0]}x{eout[1]}", draw((en,) + ehw + (c,), torch.bfloat16),
+                    draw((en, c) + eout, torch.bfloat16), *_positions(flow, eout))
 
-        def library(xin, gin):
-            up = F.interpolate(xin, TRAIN_IN, mode="bilinear", align_corners=True)
-            return F.grid_sample(up, gin.to(xin.dtype), mode="bilinear",
-                                 padding_mode="zeros", align_corners=True)
 
-        xr = xn.detach().requires_grad_(True)
-        lib_dx_out = library(xr, grid)
-        gr = grid.detach().requires_grad_(True)
-        lib_df_out = library(xn, gr)
-        coords, xb, gb = 8 * n * p, x.numel() * es, g.numel() * es
-        fma = 2 * 9 * n * p * c
-        cases["upsample_warp_fwd" + suffix].append((
-            "512x1024", lambda x=x: k6.upsample_warp_fwd(x, iy, ix),
-            lambda x=x: k6.upsample_warp_fwd_plain(x, iy, ix),
-            lambda xn=xn: library(xn, grid), fma, xb + coords + gb, f32))
-        cases["upsample_warp_dx" + suffix].append((
-            "512x1024", lambda g=g: k6.upsample_warp_dx(g, iy, ix, (h, w)),
-            lambda g=g: k6.upsample_warp_dx_plain(g, iy, ix, (h, w)),
-            lambda o=lib_dx_out, xr=xr, g=g: torch.autograd.grad(
-                o, xr, g, retain_graph=True),
-            fma, gb + coords + xb, f32))
-        cases["upsample_warp_dflow" + suffix].append((
-            "512x1024",
-            lambda x=x, g=g: torch.cat(k6.upsample_warp_dflow(x, g, iy, ix)),
-            lambda x=x, g=g: torch.cat(k6.upsample_warp_dflow_plain(x, g, iy, ix)),
-            lambda o=lib_df_out, gr=gr, g=g: torch.autograd.grad(
-                o, gr, g, retain_graph=True),
-            fma + 2 * 2 * 9 * n * p, xb + gb + 2 * coords, True))
+def spread_cotangents(rng, n, c, out_hw):
+    """Two planar cotangents (N, C, H, W) f32 whose values spread by 1e4 and
+    more within each 16 x 256 tile of kernel 6's dx: N(0, 1) with one
+    (pixel, channel) at +-1e4 in every 16 x 256 block of pixels, and the
+    cotangent of a mean cross-entropy loss on logits N(0, 4^2) with 10 %
+    of the pixels ignored (the softmax of the classes far below the top
+    spans many decades)."""
+    oh, ow = out_hw
+    g = rng.standard_normal((n, c, oh, ow)).astype(np.float32)
+    for b in range(n):
+        for py in range(0, oh, 16):
+            for px in range(0, ow, 256):
+                g[b, rng.integers(c), rng.integers(py, min(py + 16, oh)),
+                  rng.integers(px, min(px + 256, ow))] = 1e4 * rng.choice([-1, 1])
+    z = torch.from_numpy(rng.standard_normal((n, c, oh, ow)).astype(np.float32) * 4)
+    label = torch.from_numpy(rng.integers(0, c, (n, oh, ow)))
+    valid = torch.from_numpy(rng.random((n, oh, ow)) >= 0.1)
+    ce = torch.softmax(z.cuda(), 1) - F.one_hot(label.cuda(), c).permute(0, 3, 1, 2)
+    ce = ce * valid.cuda()[:, None] / valid.sum().item()
+    return {"N(0, 1) + 1e4 per tile": torch.from_numpy(g).cuda(),
+            "cross-entropy": ce.float().contiguous()}
+
+
+def check_dx_per_cell(rng, iy, ix, hw, c) -> None:
+    """Kernel 6's dx against its plain version cell by cell, each by its own
+    magnitude, on spread_cotangents at the positions (iy, ix), f32 and bf16.
+    Per cell, with S the sum of the magnitudes of its products (the plain dx
+    of |g|) and k the count of pixels that reach it: the kernel is within
+    2^-24 S of the exact sum before its own rounding, and the plain
+    version's f32 products and sum within k 2^-24 S; each rounds once to the
+    output's dtype (u = 2^-24 or 2^-8). So they differ by at most
+    (k + 1) 2^-24 S + 2 u (|plain| + (k + 1) 2^-24 S). Prints the largest error's share
+    of that bound and the kernel's device time."""
+    from adaptsegnet_tpu_torch.ops.kernels import upsample_warp as k6
+
+    n, (h, w) = iy.shape[0], hw
+    # k: the pixels whose 3x3 taps reach each cell, from the plain version's taps
+    ty, vy = k6._axis_taps(iy.reshape(n, -1), k6.scales(hw, iy.shape[1:])[0], h)
+    tx, vx = k6._axis_taps(ix.reshape(n, -1), k6.scales(hw, iy.shape[1:])[1], w)
+    cells = (ty.unsqueeze(-1) * w + tx.unsqueeze(-2)).reshape(n, -1)
+    reach = ((vy.unsqueeze(-1) * vx.unsqueeze(-2)) != 0).reshape(n, -1).float()
+    k = torch.zeros(n, h * w, device=iy.device).scatter_add_(1, cells, reach)
+    k = k.reshape(n, h, w, 1)
+    for name, g32 in spread_cotangents(rng, n, c, tuple(iy.shape[1:])).items():
+        for dtype, u in ((torch.float32, 2.0 ** -24), (torch.bfloat16, 2.0 ** -8)):
+            g = g32.to(dtype)
+            got = k6.upsample_warp_dx(g, iy, ix, hw).float()
+            plain = k6.upsample_warp_dx_plain(g, iy, ix, hw).float()
+            mag = k6.upsample_warp_dx_plain(g.float().abs(), iy, ix, hw)
+            spread = (k + 1) * 2.0 ** -24 * mag
+            bound = 1.01 * (spread + 2 * u * (plain.abs() + spread))
+            err = (got - plain).abs()
+            share = (err / bound.clamp_min(1e-38)).max().item()
+            check(bool(torch.isfinite(got).all()) and bool((err <= bound).all()),
+                  f"upsample_warp_dx {dtype} on the {name} cotangent: largest "
+                  f"error {share:.3g} of its cell's bound")
+            own_us = device_us(lambda: k6.upsample_warp_dx(g, iy, ix, hw))[0]
+            print(f"phase 8: upsample_warp_dx {dtype} on the {name} cotangent "
+                  f"(largest |g| {g.float().abs().max().item():.3g}): every cell "
+                  f"within its bound, largest error {share:.3g} of it; device "
+                  f"{own_us:.1f} us")
 
 
 def kernel_cases(rng):
@@ -793,8 +950,6 @@ def kernel_cases(rng):
 
     cl = torch.channels_last
     cases = {name: [] for name in REPLACES}
-    cases.update({f"{name}/f32": [] for name in REPLACES
-                  if name.startswith("upsample_warp")})
     cases["conv3x3_dil_batched_fwd/extra"] = []
     for key, table in (("conv3x3_dil_batched_fwd", BATCHED_MAIN),
                        ("conv3x3_dil_batched_fwd/extra", BATCHED_EXTRA)):
@@ -986,17 +1141,51 @@ def device_us(fn, iters: int = 10) -> tuple[float, float, float, float]:
             start.elapsed_time(end) * 1e3 / iters)
 
 
+def time_kernel(kern, plain, lib, flops: float, nbytes: float,
+                peak: float) -> dict:
+    """One kernel call's times: its wrapper's CUDA-event time, the host's
+    time to enqueue one call (where it exceeds the device time, the
+    CUDA-event time is the host's), the device time of the call's kernels
+    from a profiler window, the hand-written ones apart from the PyTorch
+    ones (weight relayout, bias cast, a zeroed buffer), with the share of
+    records the profiler kept, the window's CUDA-event time and the SM clock
+    that nvidia-smi reads right after the window; then the plain version's
+    and the library call's times and the bound, the larger of `flops` at
+    `peak` and `nbytes` at the HBM rate. Returns those in ms under the
+    kernels line's names, and the printed text under 'line'."""
+    ms = cuda_ms(kern, iters=20)
+    own_us, torch_us, kept, window_us = device_us(kern)
+    sm = nvidia_smi("clocks.sm")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        kern()
+    host_us = (time.perf_counter() - t0) / 20 * 1e6
+    torch.cuda.synchronize()
+    plain_ms = cuda_ms(plain, iters=5)
+    lib_ms = cuda_ms(lib, iters=20)
+    ops_ms, bytes_ms = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    device = (f"device {own_us:.1f} us ({flops / own_us / 1e6:.1f} "
+              f"TFLOP/s, {max(ops_ms, bytes_ms) * 1e5 / own_us:.1f} % "
+              f"of the bound; {kept:.0%} of its records kept) + {torch_us:.1f} "
+              f"us of PyTorch kernels"
+              if own_us > 0 else "device time not measured (the "
+              "profiler saw no kernel)")
+    device += f"; profiled window {window_us:.1f} us/call, then SM clock {sm}"
+    line = (f"kernel {ms * 1e3:.1f} us ({flops / ms / 1e9:.1f} TFLOP/s; host "
+            f"enqueue {host_us:.1f} us/call); {device}; plain "
+            f"{plain_ms * 1e3:.1f} us, library {lib_ms * 1e3:.1f} us, bound "
+            f"{max(ops_ms, bytes_ms) * 1e3:.2f} us ({flops / 1e9:.2f} GFLOP, "
+            f"{nbytes / 1e6:.1f} MB)")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, ops_ms=ops_ms,
+                bytes_ms=bytes_ms, line=line)
+
+
 def phase_train_kernels(smi: str) -> dict:
     """Each new kernel direction against its plain version at the train
-    shapes, then its time beside the plain version's, the library call's
-    and its bound. Per direction the numbers are summed over the shapes the
-    main path gives it (one call each). Beside the wrapper's CUDA-event time
-    each line gives the host's time to enqueue one call (where it exceeds
-    the device time, the CUDA-event time is the host's) and the device time
-    of the call's kernels from a profiler window, the hand-written ones
-    apart from the PyTorch ones (weight relayout, bias cast), with the
-    share of records the profiler kept, the window's CUDA-event time and
-    the SM clock that nvidia-smi reads right after the window."""
+    shapes, then its times (`time_kernel`) beside the plain version's, the
+    library call's and its bound. Per direction the numbers are summed over
+    the shapes the main path gives it (one call each)."""
     from adaptsegnet_tpu_torch.ops.kernels import KERNELS
 
     rng = np.random.default_rng(SEED + 10)
@@ -1013,35 +1202,10 @@ def phase_train_kernels(smi: str) -> dict:
             check(KERNELS[kname].launches == before + 1,
                   f"{name} did not count its launch")
             err, rel = compare_outputs(got, plain(), f32_out)
-            ms = cuda_ms(kern, iters=20)
-            own_us, torch_us, kept, window_us = device_us(kern)
-            sm = nvidia_smi("clocks.sm")
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(20):
-                kern()
-            host_us = (time.perf_counter() - t0) / 20 * 1e6
-            torch.cuda.synchronize()
-            plain_ms = cuda_ms(plain, iters=5)
-            lib_ms = cuda_ms(lib, iters=20)
-            ops_ms, bytes_ms = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
-            device = (f"device {own_us:.1f} us ({flops / own_us / 1e6:.1f} "
-                      f"TFLOP/s, {max(ops_ms, bytes_ms) * 1e5 / own_us:.1f} % "
-                      f"of the bound; {kept:.0%} of its records kept) + {torch_us:.1f} "
-                      f"us of PyTorch kernels"
-                      if own_us > 0 else "device time not measured (the "
-                      "profiler saw no kernel)")
-            device += f"; profiled window {window_us:.1f} us/call, then SM clock {sm}"
+            times = time_kernel(kern, plain, lib, flops, nbytes, peak)
             print(f"phase 8: {name} {label}: max abs err {err:.3g} "
-                  f"({rel:.2e} of max |plain|); kernel {ms * 1e3:.1f} us "
-                  f"({flops / ms / 1e9:.1f} TFLOP/s; host enqueue {host_us:.1f} "
-                  f"us/call); {device}; plain "
-                  f"{plain_ms * 1e3:.1f} "
-                  f"us, library {lib_ms * 1e3:.1f} us, bound "
-                  f"{max(ops_ms, bytes_ms) * 1e3:.2f} us ({flops / 1e9:.2f} "
-                  f"GFLOP, {nbytes / 1e6:.1f} MB) [{smi}]")
-            for k, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
-                         ("ops_ms", ops_ms), ("bytes_ms", bytes_ms)):
+                  f"({rel:.2e} of max |plain|); {times.pop('line')} [{smi}]")
+            for k, v in times.items():
                 tot[k] += v
             tot["err"] = max(tot["err"], err)
         if name not in REPLACES:
@@ -1058,6 +1222,7 @@ def phase_train_kernels(smi: str) -> dict:
             "library_ms": tot["library_ms"],
         }
     check_kernel4_edges(rng)
+    check_dx_per_cell(rng, *warper_positions(), (64, 128), 19)
     return rows
 
 
@@ -1498,7 +1663,7 @@ def main() -> int:
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
     try:
-        phase_kernels(results)
+        phase_kernels(results, smi)
         if quick:
             phase_train_kernels(smi)
             return 0

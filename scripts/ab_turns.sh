@@ -3,8 +3,9 @@
 # other) on one card. Each round runs this checkout's `chip_smoke.py
 # --kernels-only` against that round's kernels (phase 8: every kernel
 # direction's wrapper, enqueue and profiled device time, with the SM clock),
-# then `scripts/eval_batch_time.py` (DeeplabMulti batch of 4, Oracle batch of
-# 2) and `scripts/train_step_time.py` in source-only and multi-level mode.
+# then `scripts/argmax_channel_sweep.py` (kernel 1 over channel counts),
+# `scripts/eval_batch_time.py` (DeeplabMulti batch of 4, Oracle batch of 2)
+# and `scripts/train_step_time.py` in source-only and multi-level mode.
 #
 #   mkdir -p _archive/parent && git archive <commit> | tar -x -C _archive/parent
 #   chiprun --timeout 1500 -- bash scripts/ab_turns.sh _archive/parent
@@ -21,6 +22,9 @@ for round in other this this other; do
   else root=.; smoke=chip_smoke.py; fi
   echo "=== round $round kernels"
   (cd "$root" && python3 "$smoke" --kernels-only) || echo "FAILED $round kernels"
+  echo "=== round $round argmax channels"
+  python3 scripts/argmax_channel_sweep.py --root "$root" --tag "$round" \
+    || echo "FAILED $round argmax channels"
   echo "=== round $round eval"
   python3 scripts/eval_batch_time.py --root "$root" --tag "$round" \
     || echo "FAILED $round eval"
