@@ -10,6 +10,12 @@ Oracle (DeeplabSingle) or DeeplabVGG (single-output; `--aspp-sum`, default
 exact tail, as in the JAX CLI (adaptsegnet_tpu/eval/evaluator.py:125), so it
 reaches neither the fused bf16 tail nor the batched bf16 3x3 kernel:
 `make_eval_fn(model, dtype=torch.bfloat16)` is their path.
+
+`--num-devices N` (default 1; 0 = every visible card) evaluates on N ranks,
+one process per card (NCCL; gloo with --cpu, where N counts processes):
+each takes the interleaved slice of the images at a local batch of
+--batch-size / N (which must divide) and writes its own PNGs (JAX
+`:52-56`). Started by torchrun, each process joins torchrun's group.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from adaptsegnet_tpu_torch.data import CityscapesDataset
 from adaptsegnet_tpu_torch.device import resolve_device
 from adaptsegnet_tpu_torch.eval.evaluator import Evaluator
 from adaptsegnet_tpu_torch.models import DeeplabMulti, DeeplabSingle, DeeplabVGG
+from adaptsegnet_tpu_torch.parallel import group
 from adaptsegnet_tpu_torch.utils import pth_interop
 
 _INIT_SEED = 1338  # the JAX CLI's init key; absent checkpoint keys keep it
@@ -56,8 +63,10 @@ def get_arguments(argv=None):
     p.add_argument("--aspp-sum", type=str, default="")
     p.add_argument("--batch-size", type=int, default=1)
     p.add_argument("--num-devices", type=int, default=1,
-                   help="Data-parallel eval over this many devices; only 1 "
-                        "is ported so far.")
+                   help="Shard the eval batch over this many devices, one "
+                        "process each (the reference DataParallels eval by "
+                        "default, evaluate_cityscapes.py:92,145); "
+                        "batch-size must be a multiple. 0 = all devices.")
     p.add_argument("--cpu", action="store_true",
                    help="choose to use cpu device.")
     return p.parse_args(argv)
@@ -93,8 +102,13 @@ def _mode_subdir(args) -> str:
 def evaluate_checkpoint(args, model, output_index, ckpt_path, save_dir):
     pth_interop.load_into(model, pth_interop.load_torch_state_dict(ckpt_path))
     ow, oh = map(int, args.output_size.split(","))
+    mesh = None
+    if group.active():
+        import torch.distributed as dist
+
+        mesh = dist.group.WORLD
     evaluator = Evaluator(model, out_hw=(oh, ow), output_index=output_index,
-                          save_dir=save_dir)
+                          save_dir=save_dir, mesh=mesh)
     w, h = map(int, args.input_size.split(","))
     ds = CityscapesDataset(args.data_dir, args.data_list, crop_size=(w, h),
                            set=args.set)
@@ -103,10 +117,16 @@ def evaluate_checkpoint(args, model, output_index, ckpt_path, save_dir):
 
 def main(argv=None):
     args = get_arguments(argv)
-    if args.num_devices != 1:
-        raise NotImplementedError(
-            "--num-devices other than 1 is not ported yet: see ROADMAP.md, "
-            "open item 'Scale-out' (torch.distributed)")
+    ranks = args.num_devices or group.device_count(args.cpu)
+    if ranks > 1 or group.started_by_torchrun():
+        group.launch(run, ranks, cpu=args.cpu, args=(args,))
+    else:
+        run(args)
+
+
+def run(args) -> None:
+    """Evaluate the checkpoints of `args` in this process (one rank of a
+    group, or alone)."""
     device = resolve_device("cpu" if args.cpu else None)
     os.makedirs(args.save, exist_ok=True)
     model, output_index = build_model(args, device)
@@ -124,10 +144,11 @@ def main(argv=None):
             )
 
     for step, path in ckpts:
-        if step is not None:
+        if step is not None and group.rank() == 0:
             print("Step: ", step)
         if not osp.exists(path):
-            print(f"missing snapshot {path}; skipping")
+            if group.rank() == 0:
+                print(f"missing snapshot {path}; skipping")
             continue
         sub = (osp.join(args.save, _mode_subdir(args), f"step{step}")
                if step is not None else args.save)

@@ -73,6 +73,7 @@ using sm90::cp_async_commit;
 using sm90::cp_async_wait;
 using sm90::desc_mn_sw128;
 using sm90::desc_sw128;
+using sm90::smem_once_per_device;
 using sm90::encode_map_3d;
 using sm90::fence_proxy_async;
 using sm90::kRowBytes;
@@ -716,17 +717,6 @@ dgrad_kernel(const __grid_constant__ CUtensorMap tmap_w,
 
 // --------------------------------------------------------------- launching
 
-// Set the kernel's dynamic shared memory once per process; returns a
-// cudaError_t.
-int configure(const void* kernel, size_t bytes, bool* done) {
-  if (*done) return 0;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  *done = err == cudaSuccess;
-  return static_cast<int>(err);
-}
-
 // One persistent block per SM of the current device, at most `tiles`.
 int persistent_grid(int tiles, int* grid) {
   int dev = 0, sms = 0;
@@ -778,10 +768,10 @@ bool valid_shape(int n, int c, int h, int w) {
 extern "C" int asn_conv4x4_patch_fwd(const void* x, const void* wt,
                                      const void* bias, void* out, int n,
                                      int c, int h, int w, void* stream) {
-  static bool done = false;
+  static std::atomic<unsigned long long> done{0};
   if (!valid_shape(n, c, h, w)) return static_cast<int>(cudaErrorInvalidValue);
-  int err = configure(reinterpret_cast<const void*>(fwd_kernel), kFwdSmem,
-                      &done);
+  int err = smem_once_per_device(reinterpret_cast<const void*>(fwd_kernel),
+                                 kFwdSmem, &done);
   if (err) return err;
   CUtensorMap map, xmap;
   int tma = 0;
@@ -806,7 +796,7 @@ extern "C" int asn_conv4x4_patch_wgrad(const void* x, const void* dy,
                                        void* ws, void* dk, int n, int c,
                                        int h, int w, int splits, int per,
                                        void* stream) {
-  static bool done = false;
+  static std::atomic<unsigned long long> done{0};
   const int ho = h / 2, wo = w / 2;
   const int steps = n * ho * ((wo + kWgPx - 1) / kWgPx);
   if (!valid_shape(n, c, h, w) || splits < 1 || per < 1 ||
@@ -814,8 +804,8 @@ extern "C" int asn_conv4x4_patch_wgrad(const void* x, const void* dy,
       static_cast<long long>(splits - 1) * per >= steps ||
       (splits > 1 && ws == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  int err = configure(reinterpret_cast<const void*>(wgrad_kernel), kWgradSmem,
-                      &done);
+  int err = smem_once_per_device(reinterpret_cast<const void*>(wgrad_kernel),
+                                 kWgradSmem, &done);
   if (err) return err;
   // dy as (1, pixels, 64): boxes of 64 pixels x 64 channels, zero past the
   // last pixel.
@@ -842,10 +832,10 @@ extern "C" int asn_conv4x4_patch_wgrad(const void* x, const void* dy,
 extern "C" int asn_conv4x4_patch_dgrad(const void* dy, const void* wt,
                                        void* dx, int n, int c, int h, int w,
                                        void* stream) {
-  static bool done = false;
+  static std::atomic<unsigned long long> done{0};
   if (!valid_shape(n, c, h, w)) return static_cast<int>(cudaErrorInvalidValue);
-  int err = configure(reinterpret_cast<const void*>(dgrad_kernel), kDgradSmem,
-                      &done);
+  int err = smem_once_per_device(reinterpret_cast<const void*>(dgrad_kernel),
+                                 kDgradSmem, &done);
   if (err) return err;
   CUtensorMap map;  // rows past c load as zero: N = c padded to 32
   err = encode_map_3d(&map, wt, 4 * kCout, c, 4, 64, 32);

@@ -294,17 +294,13 @@ extern "C" int asn_conv4x4_s2_wgrad(const void* x, const void* dy, void* ws,
       (splits > 1 && ws == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr size_t bytes = WgRing::kSmemBytes;
-  static bool configured = false;  // the attribute is set once per process
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        wgrad_sm90_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(bytes));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
-  }
+  static std::atomic<unsigned long long> configured{0};
+  int err = sm90::smem_once_per_device(
+      reinterpret_cast<const void*>(wgrad_sm90_kernel), bytes, &configured);
+  if (err) return err;
   // dy as (1, m, cout): boxes of 64 pixels x 64 channels, zero past m.
   CUtensorMap map;
-  int err = sm90::encode_map_3d(&map, dy, cout, g.m, 1, 64, sm90::kBK);
+  err = sm90::encode_map_3d(&map, dy, cout, g.m, 1, 64, sm90::kBK);
   if (err) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(16 * cin / kWgBM, cout / kWgBN, splits);

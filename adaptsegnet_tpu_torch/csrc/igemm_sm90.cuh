@@ -48,6 +48,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 // Internal linkage throughout: each .cu builds its own shared library, and
 // an inline function's static (or the function itself) would otherwise be a
 // unique symbol that the dynamic loader binds across the loaded libraries.
@@ -533,19 +535,34 @@ inline int encode_map_3d(CUtensorMap* map, const void* base, uint64_t d0,
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
+// Set `kernel`'s dynamic shared-memory limit to `bytes` on the current
+// device once: bit d of `done` records device ordinal d (the attribute is
+// per device, and a process may launch on more than one). Returns a
+// cudaError_t.
+int smem_once_per_device(const void* kernel, size_t bytes,
+                         std::atomic<unsigned long long>* done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (bit && (done->load() & bit)) return 0;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err == cudaSuccess) done->fetch_or(bit);
+  return static_cast<int>(err);
+}
+
 template <int kWG, int kBN>
 int launch_wg(const CUtensorMap& map, const void* src, const void* bias,
               void* out, void* ws, const Geo& g, int classes,
               cudaStream_t stream) {
   constexpr size_t bytes = Ring<kWG, kBN>::kSmemBytes;
-  static bool configured = false;  // the attribute is set once per process
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        conv_sm90_kernel<kWG, kBN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(bytes));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
-  }
+  static std::atomic<unsigned long long> configured{0};
+  const int err = smem_once_per_device(
+      reinterpret_cast<const void*>(conv_sm90_kernel<kWG, kBN>), bytes,
+      &configured);
+  if (err) return err;
   const int BM = 64 * kWG;
   const int M = g.n * g.oh * g.ow;
   const dim3 grid((M + BM - 1) / BM, (g.ncols + kBN - 1) / kBN,

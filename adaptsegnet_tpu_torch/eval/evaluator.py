@@ -104,8 +104,16 @@ class Evaluator:
     """Streams a CityscapesDataset through the eval fn, writing PNGs.
 
     `save_dir=None` skips PNG output; `run_streaming` accumulates the
-    confusion matrix on the device instead. Data-parallel eval (`mesh`) is
-    not ported yet (ROADMAP.md, open item "Scale-out") and raises.
+    confusion matrix on the device instead.
+
+    `mesh`, a `torch.distributed` process group (e.g.
+    `torch.distributed.group.WORLD`), makes the eval data-parallel, as the
+    JAX Evaluator's mesh does (adaptsegnet_tpu/eval/evaluator.py:109-154):
+    each of its W ranks takes the interleaved slice of the dataset (items
+    rank, rank + W, ...) at a local batch of batch_size / W, so that the
+    ranks' k-th batches together are the k-th global batch, and writes its
+    own PNGs; `run_streaming` sums the histogram over the group. A batch
+    that does not divide by W raises.
     """
 
     def __init__(
@@ -117,10 +125,7 @@ class Evaluator:
         mesh=None,
         num_classes: int = 19,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "data-parallel eval is not ported yet: see ROADMAP.md, open "
-                "item 'Scale-out' (torch.distributed)")
+        self.mesh = mesh
         self.eval_fn = make_eval_fn(model, out_hw=out_hw,
                                     output_index=output_index)
         self._model = model
@@ -132,6 +137,20 @@ class Evaluator:
         self.save_dir = save_dir
         if save_dir:
             os.makedirs(save_dir, exist_ok=True)
+
+    def _local(self, ds, batch_size):
+        """(this rank's view of `ds`, its local batch, its rank, the
+        group's size)."""
+        if self.mesh is None:
+            return ds, batch_size, 0, 1
+        import torch.distributed as dist
+
+        w = dist.get_world_size(self.mesh)
+        if batch_size % w:
+            raise ValueError(f"eval batch {batch_size} not divisible by the "
+                             f"{w}-process group")
+        r = dist.get_rank(self.mesh)
+        return _Strided(ds, r, w), batch_size // w, r, w
 
     def _stream(self, ds, batch_size, num_workers, progress_every, stacked,
                 pad_value, step) -> list[str]:
@@ -145,8 +164,11 @@ class Evaluator:
 
         stacked: item columns stacked into device tensors (others stay
         lists); pad_value(col, last) -> padding element for a stacked
-        column; step(cols) -> masks for the batch. Returns written PNG paths.
+        column; step(cols) -> masks for the batch. Returns written PNG paths
+        (this rank's, in a group).
         """
+        ds, batch_size, rank, w = self._local(ds, batch_size)
+        lead = rank == 0
         n = len(ds)
         lookahead = 2 * batch_size + num_workers
         futures = []
@@ -168,8 +190,8 @@ class Evaluator:
                         vals = torch.from_numpy(np.stack(vals)).to(self._device)
                     cols.append(vals)
                 masks = step(cols)[:k].cpu().numpy()
-                if start % (progress_every * batch_size) == 0:
-                    print(f"{start} processd")  # reference log line (:157)
+                if lead and start % (progress_every * batch_size) == 0:
+                    print(f"{start * w} processd")  # reference log line (:157)
                 if self.save_dir:
                     for mask, name in zip(masks, cols[-1]):
                         futures.append(writer.submit(self._save_mask, mask, name))
@@ -198,7 +220,8 @@ class Evaluator:
         `gt_loader(name) -> (H, W) int train-id label` at the evaluator's
         output resolution. The hist accumulates on the device in int64;
         padded ragged-tail items carry all-ignore (255) labels. PNGs are
-        still written when save_dir is set.
+        still written when save_dir is set. In a group every rank returns
+        the histogram summed over the group.
         """
         if self._hist_fn is None:
             self._hist_fn = make_eval_hist_fn(
@@ -235,6 +258,10 @@ class Evaluator:
             ),
             step=step,
         )
+        if self.mesh is not None:
+            import torch.distributed as dist
+
+            dist.all_reduce(hist, group=self.mesh)
         return hist.cpu().numpy()
 
     def _save_mask(self, mask, name):
@@ -247,3 +274,16 @@ class Evaluator:
             osp.join(self.save_dir, base.split(".")[0] + "_color.png")
         )
         return out
+
+
+class _Strided:
+    """Items rank, rank + w, rank + 2w, ... of a map-style dataset."""
+
+    def __init__(self, ds, rank: int, w: int):
+        self._ds, self._rank, self._w = ds, rank, w
+
+    def __len__(self):
+        return len(range(self._rank, len(self._ds), self._w))
+
+    def __getitem__(self, i):
+        return self._ds[self._rank + i * self._w]

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from adaptsegnet_tpu_torch.ops.conv3x3 import conv3x3_s1
+from adaptsegnet_tpu_torch.parallel import group
 from adaptsegnet_tpu_torch.ops.conv4x4 import conv4x4_stride2
 from adaptsegnet_tpu_torch.ops.precision import tf32_for
 
@@ -107,14 +108,25 @@ def bn_train_frozen_affine(y: torch.Tensor, bn: FrozenBatchNorm2d) -> torch.Tens
     error compounds over the backbone's ~100 BNs) and updates `bn`'s running
     statistics in place with torch's momentum 0.1, the variance unbiased
     (n / (n - 1)). Gradients flow through the batch statistics; the affine
-    and the running updates carry none. Rounded once to y's dtype."""
+    and the running updates carry none. Rounded once to y's dtype.
+
+    In a data-parallel group of more than one rank the statistics are the
+    global batch's, as GSPMD makes them in the JAX package: both passes sum
+    over the group through a differentiable all-reduce (its backward sums
+    the statistics' gradients over the ranks), and n is the global count."""
     yf = y.float()
     shape = (1, -1, 1, 1)
-    mean = yf.mean(dim=(0, 2, 3))
-    centred = yf - mean.view(shape)
-    var = centred.square().mean(dim=(0, 2, 3))
+    n = y.shape[0] * y.shape[2] * y.shape[3]
+    if group.world() > 1:
+        n *= group.world()
+        mean = group.all_reduce_sum_grad(yf.sum(dim=(0, 2, 3))) / n
+        centred = yf - mean.view(shape)
+        var = group.all_reduce_sum_grad(centred.square().sum(dim=(0, 2, 3))) / n
+    else:
+        mean = yf.mean(dim=(0, 2, 3))
+        centred = yf - mean.view(shape)
+        var = centred.square().mean(dim=(0, 2, 3))
     with torch.no_grad():
-        n = y.shape[0] * y.shape[2] * y.shape[3]
         m = BN_MOMENTUM
         bn.running_mean.copy_((1 - m) * bn.running_mean + m * mean)
         bn.running_var.copy_((1 - m) * bn.running_var
@@ -264,6 +276,11 @@ class WarperBatchNorm2d(nn.Module):
     biased (torch's nn.BatchNorm2d would store the unbiased one). In eval
     mode it uses the running statistics. The affine (weight ~ N(1, 0.02),
     bias 0) applies in f32; the output is rounded once to x's dtype.
+
+    In a data-parallel group of more than one rank the train-mode
+    statistics are the global batch's: the sums of x and x^2 are
+    all-reduced together (the Warper runs under no_grad, so no gradient
+    flows through them).
     """
 
     def __init__(self, features: int, momentum: float = 0.9,
@@ -279,9 +296,15 @@ class WarperBatchNorm2d(nn.Module):
         xf = x.float()
         shape = (1, -1, 1, 1)
         if self.training:
-            mean = xf.mean(dim=(0, 2, 3))
-            var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean,
-                              min=0.0)
+            if group.world() > 1:
+                n = x.shape[0] * x.shape[2] * x.shape[3] * group.world()
+                sums = group.all_reduce_sum(torch.stack(
+                    [xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3))]))
+                mean, sq = sums[0] / n, sums[1] / n
+            else:
+                mean = xf.mean(dim=(0, 2, 3))
+                sq = (xf * xf).mean(dim=(0, 2, 3))
+            var = torch.clamp(sq - mean * mean, min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)

@@ -238,7 +238,11 @@ class Warper(nn.Module):
     from `generator` with the reference's xavier law (gain 0.02; BN weight
     ~ N(1, 0.02)); spectral `u` vectors ~ N(0, 1) from the same generator.
     `device` as for DeeplabMulti (default: the CUDA card, raises without).
-    `dropout_generator` (on `device`) draws the Dropout masks."""
+    `dropout_generator` (on `device`) draws the Dropout masks (off by
+    default). In a data-parallel group each rank passes its own generator,
+    seeded with the run's seed + its rank, so the ranks draw different
+    masks for their images, as the devices of a JAX mesh draw from one
+    key over the global batch; the parity tests run with dropout off."""
 
     def __init__(self, num_layers: int = 8, norm: str = "Batch",
                  transpose: bool = False, use_dropout: bool = False,

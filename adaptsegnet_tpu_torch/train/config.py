@@ -2,9 +2,11 @@
 
 Counterpart of adaptsegnet_tpu/train/config.py (reference
 train_gta2cityscapes_multi.py:24-156): the same flags, names, types and
-defaults, parsed the same way. What the port does not run yet, more than
-one device, raises NotImplementedError from `check_supported` with a
-pointer to ROADMAP.md. Deviations from the JAX defaults: none;
+defaults, parsed the same way. `--num-devices` (0 = every visible card)
+sets the data-parallel world size through `parallel.auto_world_size`, as
+the JAX package sizes its mesh; `check_supported` raises when the global
+`--batch-size` does not divide by the group's size. Deviations from the
+JAX defaults: none;
 `--orbax-checkpoints` keeps its name for flag parity and saves the full
 state with torch.save (utils/checkpoint.py).
 """
@@ -14,6 +16,8 @@ from __future__ import annotations
 import argparse
 import dataclasses
 from dataclasses import dataclass
+
+from adaptsegnet_tpu_torch.parallel import group
 
 
 @dataclass
@@ -106,11 +110,19 @@ class TrainConfig:
 
 
 def check_supported(cfg: TrainConfig) -> None:
-    """Raise NotImplementedError for what the port does not run yet."""
-    if cfg.num_devices not in (0, 1):
-        raise NotImplementedError(
-            f"--num-devices {cfg.num_devices} is not ported yet: see "
-            "ROADMAP.md, open item 'Scale-out' (torch.distributed)")
+    """Raise ValueError when the global batch does not divide by the
+    data-parallel group's size (JAX adaptsegnet_tpu/train/loop.py:63-68)."""
+    w = group.world()
+    if cfg.batch_size % w:
+        raise ValueError(
+            f"global batch {cfg.batch_size} not divisible by {w} processes")
+
+
+def world_size(cfg: TrainConfig) -> int:
+    """The number of ranks `--num-devices` asks for: JAX's mesh size for
+    the global batch over the visible cards (one CPU with --cpu)."""
+    return group.auto_world_size(cfg.batch_size, cfg.num_devices,
+                                 group.device_count(cfg.cpu))
 
 
 def _add_bool_flag(parser, name, default, help_):

@@ -1,8 +1,9 @@
 """Training driver: config -> data -> step -> snapshots and logging.
 
 Counterpart of adaptsegnet_tpu/train/loop.py (`train` :120-269; reference
-train_gta2cityscapes_multi.py:180-729) on one device. The source domain is
-GTA5 or, with --source Synscapes, Synscapes. Batches come from the
+train_gta2cityscapes_multi.py:180-729), on one device or as one rank of a
+data-parallel group (parallel/group.py; cli/train.py launches the ranks).
+The source domain is GTA5 or, with --source Synscapes, Synscapes. Batches come from the
 prefetching loader, collated to the step layout (iter_size, B, ...). The
 loss line of step i is printed after step i+1 is enqueued, so reading the
 metrics (a device sync) overlaps the next step. Snapshots keep the
@@ -11,6 +12,16 @@ multi_level); with --orbax-checkpoints the full state (the Warper's
 running statistics included, where the mode builds it) is saved beside them
 and the latest one is resumed. SIGTERM / SIGINT end the run with a final
 snapshot.
+
+In a group of W ranks each rank loads its interleaved slice of every
+global batch (B / W images per step), and all ranks start from rank 0's
+state: the latest full state that rank 0 finds (its file's bytes are
+broadcast, so the other ranks need not see rank 0's snapshot directory),
+else the state rank 0 built. Rank 0 alone writes the .pth snapshots, the full state, the tensorboard scalars, the loss lines
+and the profile. A signal ends the run at the same step on every rank: a
+rank's stop vote rides in the step's metrics all-reduce, and all ranks read
+the summed vote one step behind, with the loss line (a rank that left the
+loop alone would hang the others in their next collective).
 """
 
 from __future__ import annotations
@@ -31,6 +42,7 @@ from adaptsegnet_tpu_torch.data import (
     SynscapesDataset,
 )
 from adaptsegnet_tpu_torch.device import resolve_device
+from adaptsegnet_tpu_torch.parallel import group
 from adaptsegnet_tpu_torch.train.build import build_train_state
 from adaptsegnet_tpu_torch.train.config import TrainConfig
 from adaptsegnet_tpu_torch.train.steps import (
@@ -53,10 +65,13 @@ def mode_subdir(cfg: TrainConfig) -> str:
 
 def _loaders(cfg: TrainConfig, device: torch.device):
     """The source loader and, for the adversarial modes, the target one;
-    batches shaped (iter_size, B, ...)."""
+    batches shaped (iter_size, B / W, ...), the rank's slice of the global
+    batch."""
     max_iters = cfg.num_steps * cfg.iter_size * cfg.batch_size
-    per_step = cfg.iter_size * cfg.batch_size
-    ishape = (cfg.iter_size, cfg.batch_size)
+    local_bs = cfg.batch_size // group.world()
+    per_step = cfg.iter_size * local_bs
+    ishape = (cfg.iter_size, local_bs)
+    slicing = dict(process_index=group.rank(), process_count=group.world())
 
     def collate_source(items):
         img = np.stack([it[0] for it in items])
@@ -74,7 +89,7 @@ def _loaders(cfg: TrainConfig, device: torch.device):
                         mirror=cfg.random_mirror, seed=cfg.random_seed)
     loaders = [PrefetchLoader(source, per_step, collate_source, device,
                               seed=cfg.random_seed,
-                              num_workers=cfg.num_workers)]
+                              num_workers=cfg.num_workers, **slicing)]
     if not cfg.source_only:
         target = CityscapesDataset(
             cfg.data_dir_target, cfg.data_list_target,
@@ -83,8 +98,23 @@ def _loaders(cfg: TrainConfig, device: torch.device):
             seed=cfg.random_seed)
         loaders.append(PrefetchLoader(target, per_step, collate_target, device,
                                       seed=cfg.random_seed + 1,
-                                      num_workers=cfg.num_workers))
+                                      num_workers=cfg.num_workers, **slicing))
     return loaders
+
+
+def _resume_or_replicate(state, full: Optional[FullStateCheckpoints],
+                         device: torch.device) -> bool:
+    """Start every rank from rank 0's state: the latest full state rank 0
+    finds in `full` (None: no full-state checkpoints), else the state rank 0
+    built. Returns whether a full state was resumed."""
+    data = (full.read_latest() if full is not None and group.rank() == 0
+            else None)
+    data = group.broadcast_bytes(data, device)
+    if data is None:
+        group.broadcast_state(state)
+        return False
+    FullStateCheckpoints.load_bytes(state, data)
+    return True
 
 
 def train(cfg: TrainConfig, max_steps: Optional[int] = None) -> dict:
@@ -92,6 +122,8 @@ def train(cfg: TrainConfig, max_steps: Optional[int] = None) -> dict:
     device = resolve_device("cpu" if cfg.cpu else None)
     torch.manual_seed(cfg.random_seed)
     state = build_train_state(cfg, device)
+    lead = group.rank() == 0
+    voting = group.world() > 1  # the stop decision rides in the metrics
     if cfg.source_only:
         step_fn = make_source_only_step(cfg.input_hw, cfg.iter_size)
     else:
@@ -102,10 +134,10 @@ def train(cfg: TrainConfig, max_steps: Optional[int] = None) -> dict:
             iter_size=cfg.iter_size)
 
     sub = mode_subdir(cfg)
-    logger = ScalarLogger(cfg.log_dir, cfg.tensorboard)
+    logger = ScalarLogger(cfg.log_dir, cfg.tensorboard and lead)
     full = (FullStateCheckpoints(osp.join(cfg.snapshot_dir, sub, "full_state"))
             if cfg.orbax_checkpoints else None)
-    if full is not None and full.restore(state):
+    if _resume_or_replicate(state, full, device) and lead:
         print(f"resumed the full state at step {state.step}")
 
     stop = min(cfg.num_steps_stop, max_steps or cfg.num_steps_stop)
@@ -113,6 +145,8 @@ def train(cfg: TrainConfig, max_steps: Optional[int] = None) -> dict:
     snapshots: list[str] = []
 
     def snapshot(tag: int):
+        if not lead:
+            return
         snapshots.append(save_snapshot_pth(cfg.snapshot_dir, sub, tag,
                                            state.model, state.d1, state.d2))
         if full is not None:
@@ -124,20 +158,25 @@ def train(cfg: TrainConfig, max_steps: Optional[int] = None) -> dict:
     pending = None  # (i_iter, device metrics of the previous step)
     host: dict = {}
     times: list[float] = []
+    # the vote's tensor is filled in place each step: a new tensor from a
+    # host value would wait for the card to finish the previous step
+    vote = torch.zeros((), device=device) if voting else None
 
     def emit(item):
         it, dev = item
         vals = {k: float(v) for k, v in dev.items()}
-        print(f"exp = {cfg.snapshot_dir}")
-        print(format_losses(it, cfg.num_steps, vals))
-        logger.log(it, vals)
-        return vals
+        votes = vals.pop("stop", 0.0)
+        if lead:
+            print(f"exp = {cfg.snapshot_dir}")
+            print(format_losses(it, cfg.num_steps, vals))
+            logger.log(it, vals)
+        return vals, votes > 0
 
     profiler = None
     start = state.step
     try:
         for i_iter in range(start, stop):
-            if cfg.profile_dir and i_iter == start + 3:
+            if cfg.profile_dir and lead and i_iter == start + 3:
                 profiler = torch.profiler.profile(activities=[
                     torch.profiler.ProfilerActivity.CPU,
                     *([torch.profiler.ProfilerActivity.CUDA]
@@ -147,9 +186,13 @@ def train(cfg: TrainConfig, max_steps: Optional[int] = None) -> dict:
             for loader in loaders:
                 batch.update(next(loader))
             t0 = time.perf_counter()
-            metrics = step_fn(state, batch)
+            if voting:
+                vote.fill_(float(bool(stop_requested)))
+            metrics = step_fn(state, batch, {"stop": vote} if voting else None)
+            agreed = False
             if pending is not None:
-                host = emit(pending)  # waits for step i-1 while step i runs
+                # waits for step i-1 while step i runs
+                host, agreed = emit(pending)
                 times.append(time.perf_counter() - t0)
             pending = (i_iter, metrics)
             if profiler is not None and (i_iter == start + 6
@@ -160,26 +203,30 @@ def train(cfg: TrainConfig, max_steps: Optional[int] = None) -> dict:
                     osp.join(cfg.profile_dir, "trace.json"))
                 profiler = None
 
-            if stop_requested:
-                print(f"signal {stop_requested[0]} received; snapshotting ...")
+            if agreed if voting else stop_requested:
+                if lead:
+                    sig = stop_requested[0] if stop_requested else "(another rank's)"
+                    print(f"signal {sig} received; snapshotting ...")
                 snapshot(i_iter + 1)
                 break
             if i_iter >= stop - 1:
-                print("save model ...")
+                if lead:
+                    print("save model ...")
                 snapshot(stop)
                 break
             if i_iter % cfg.save_pred_every == 0 and i_iter != 0:
-                print("taking snapshot ...")
+                if lead:
+                    print("taking snapshot ...")
                 snapshot(i_iter)
         if pending is not None:
-            host = emit(pending)
+            host, _ = emit(pending)
     finally:
         for sig, h in old_handlers.items():
             signal.signal(sig, h)
         for loader in loaders:
             loader.close()
         logger.close()
-    if times:
+    if times and lead:
         print(f"step time (host clock, one step behind): median "
               f"{1e3 * float(np.median(times)):.1f} ms")
     return {"final_metrics": host, "snapshots": snapshots, "steps": stop}

@@ -37,6 +37,18 @@ A step takes `batch = {'images': (iter_size, B, H, W, 3), 'labels':
 (iter_size, B, H, W), 'target_images': (iter_size, B, H, W, 3)}` on the
 model's device, updates the state in place and returns the metrics under
 the reference's names as 0-d f32 tensors (no host sync).
+
+In a data-parallel group (parallel/group.py) the batch is the rank's part
+of the global batch and the step computes what one process computes on
+the whole of it, as GSPMD makes the JAX step under a mesh: each loss is the
+rank's share of the global one (ops/losses.py), the batch statistics are
+global (models/layers.py), and after every micro-batch's backward, before
+the optimizers step, each module's gradients are summed over the group in
+one collective (`group.all_reduce_grads`; no DistributedDataParallel, whose
+hooks do not take the D's requires_grad toggling). The metrics are the
+rank's shares, summed over the group in one all-reduce with `extra`
+(further per-rank 0-d values, the loop's stop vote), so every rank returns
+the global values; the all-reduce is enqueued like the step's kernels.
 """
 
 from __future__ import annotations
@@ -54,6 +66,7 @@ from adaptsegnet_tpu_torch.ops.resize import (
     upsample_softmax_planar,
 )
 from adaptsegnet_tpu_torch.ops.upsample_warp import upsample_warp
+from adaptsegnet_tpu_torch.parallel import group
 from adaptsegnet_tpu_torch.train.state import TrainState
 
 SOURCE_LABEL = 0.0  # reference :363
@@ -77,6 +90,18 @@ def _zero_grads(state: TrainState) -> None:
     for opt in (state.g_opt, state.d1_opt, state.d2_opt):
         if opt is not None:
             opt.zero_grad(set_to_none=True)
+
+
+def _reduce(metrics: dict, extra: dict | None) -> dict:
+    """The step's metrics (and `extra`) summed over the group in one
+    all-reduce; unchanged (with `extra` added) with no group."""
+    metrics = {**metrics, **(extra or {})}
+    if not group.active():
+        return metrics
+    names = sorted(metrics)
+    total = group.all_reduce_sum(torch.stack(
+        [metrics[k].float().reshape(()) for k in names]))
+    return dict(zip(names, total.unbind()))
 
 
 def _apply(state: TrainState) -> None:
@@ -107,7 +132,7 @@ def make_source_only_step(input_hw=(512, 1024), iter_size: int = 1):
     """Source-domain CE pretraining step (reference :230-314), with the
     state's Warper when it has one."""
 
-    def step(state: TrainState, batch) -> dict:
+    def step(state: TrainState, batch, extra: dict | None = None) -> dict:
         exact = _exact(state.model)
         state.set_lrs()
         _zero_grads(state)
@@ -123,8 +148,9 @@ def make_source_only_step(input_hw=(512, 1024), iter_size: int = 1):
                     upsample_warp(pred2, flow, input_hw), batch["labels"][k])
             (loss / iter_size).backward()
             total = total + loss.detach() / iter_size
+        group.all_reduce_grads((state.model,))
         _apply(state)
-        return {"loss_seg2": total}
+        return _reduce({"loss_seg2": total}, extra)
 
     return step
 
@@ -145,7 +171,7 @@ def make_adversarial_step(
     criterion = gan_loss(gan)
     multi = level == "multi-level"
 
-    def step(state: TrainState, batch) -> dict:
+    def step(state: TrainState, batch, extra: dict | None = None) -> dict:
         exact = _exact(state.model)
         d1 = state.d1 if multi else None
         d2 = state.d2
@@ -204,7 +230,8 @@ def make_adversarial_step(
                 d_total = d_total + loss_d1
                 add("loss_D1", loss_d1)
             (d_total / iter_size).backward()
+        group.all_reduce_grads((state.model, d1, d2))
         _apply(state)
-        return metrics
+        return _reduce(metrics, extra)
 
     return step

@@ -13,6 +13,7 @@ Counterpart of adaptsegnet_tpu/utils/checkpoint.py:
 
 from __future__ import annotations
 
+import io
 import os
 import os.path as osp
 import re
@@ -52,18 +53,34 @@ class FullStateCheckpoints:
         steps = self.steps()
         return steps[-1] if steps else None
 
+    def path(self, step: int) -> str:
+        return osp.join(self.directory, f"state_{step}.pt")
+
     def save(self, step: int, state) -> None:
-        path = osp.join(self.directory, f"state_{step}.pt")
+        path = self.path(step)
         torch.save(state.state_dict(), path + ".tmp")
         os.replace(path + ".tmp", path)
         for old in self.steps()[:-self.max_to_keep]:
-            os.remove(osp.join(self.directory, f"state_{old}.pt"))
+            os.remove(self.path(old))
 
     def restore(self, state, step: int | None = None) -> bool:
         step = self.latest_step() if step is None else step
         if step is None:
             return False
-        sd = torch.load(osp.join(self.directory, f"state_{step}.pt"),
-                        map_location="cpu", weights_only=False)
-        state.load_state_dict(sd)
+        with open(self.path(step), "rb") as f:
+            self.load_bytes(state, f.read())
         return True
+
+    def read_latest(self) -> bytes | None:
+        """The newest saved state's file as bytes; None if there is none."""
+        step = self.latest_step()
+        if step is None:
+            return None
+        with open(self.path(step), "rb") as f:
+            return f.read()
+
+    @staticmethod
+    def load_bytes(state, data: bytes) -> None:
+        """Load a saved state's file, given as bytes, into `state`."""
+        state.load_state_dict(torch.load(io.BytesIO(data), map_location="cpu",
+                                         weights_only=False))

@@ -15,8 +15,12 @@ DeeplabMulti / DeeplabSingle / ResNetBackbone trees, DeeplabVGG trees
 (`conv1_1`..`fc7` -> the reference's `features.<i>`, with or without the
 JAX train adapter's `vgg` level), FCDiscriminator trees (`conv1`..`conv4`,
 `classifier`) and Warper trees (`encoder_d`, `decoder_d`: transposed convs
-HWIO -> (Cin, Cout, 4, 4), the `spectral` collection's `u` vectors): the
-parity tests load identical weights into both packages with it.
+HWIO -> (Cin, Cout, 4, 4), the `spectral` collection's `u` vectors) and
+the trees of the zoo's blocks in models/custom_blocks.py (PReLU `alpha` ->
+`weight`, OneOneConvolution's `one_one_kernel` / `one_one_bias` ->
+`one_one.1.*`, Connection's `one_one_<i>` -> `container.<i>`, each conv's
+inner `conv` level dropped): the parity tests load identical weights into
+both packages with it.
 
 The Warper's keys are the reference's; `warper_state_dict` is the
 counterpart of the JAX package's `warper_state_dict_to_variables`
@@ -175,11 +179,55 @@ def _warper_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     return sd
 
 
+_BLOCK_MARKERS = {"alpha", "one_one_kernel", "input_conv", "one_one_0"}
+_BLOCK_LEAVES = {"kernel": "weight", "alpha": "weight", "u": "u", **_BN_LEAVES}
+
+
+def _is_block_tree(params: Mapping[str, Any]) -> bool:
+    """A tree of one of the zoo's blocks (models/custom_blocks.py)."""
+    return bool(_BLOCK_MARKERS & set(params)) or set(params) in (
+        {"conv"}, {"conv", "bn"})
+
+
+def _block_key(path: tuple[str, ...]) -> str:
+    """Flax path of a zoo block -> the port's key: `one_one_kernel` ->
+    `one_one.1.weight`, `one_one_<i>` -> `container.<i>`, `<m>/conv/<leaf>`
+    and `<m>/bn/<leaf>` -> `<m>.<leaf>`."""
+    parts: list[str] = []
+    for i, name in enumerate(path):
+        leaf = i == len(path) - 1
+        if leaf and name.startswith("one_one_"):
+            parts += ["one_one", "1", _BLOCK_LEAVES[name.removeprefix("one_one_")]]
+        elif leaf:
+            parts.append(_BLOCK_LEAVES[name])
+        elif re.fullmatch(r"one_one_\d+", name):
+            parts += ["container", name.removeprefix("one_one_")]
+        elif name in ("conv", "bn") and i == len(path) - 2 and parts:
+            continue  # the flax wrapper's inner level
+        else:
+            parts.append(name)
+    return ".".join(parts)
+
+
+def _block_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    sd = {}
+    for coll in ("params", "batch_stats", "spectral"):
+        for path, value in _leaves(variables.get(coll, {})):
+            arr = np.array(value, dtype=np.float32)
+            if path[-1] in ("kernel", "one_one_kernel"):
+                arr = np.transpose(arr, (3, 2, 0, 1))  # HWIO -> OIHW
+            sd[_block_key(path)] = torch.from_numpy(np.ascontiguousarray(arr))
+    return sd
+
+
 def from_jax_variables(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     """Flax DeeplabMulti / DeeplabSingle / ResNetBackbone / DeeplabVGG /
-    FCDiscriminator / Warper variables -> port state dict."""
-    if "encoder_d" in variables.get("params", {}):
+    FCDiscriminator / Warper / zoo-block variables -> port state dict."""
+    params = variables.get("params", {})
+    if "encoder_d" in params:
         return _warper_from_jax(variables)
+    if _is_block_tree(params):
+        return _block_from_jax(variables)
     sd: dict[str, torch.Tensor] = {}
     for coll in ("params", "batch_stats"):
         for path, value in _leaves(variables.get(coll, {})):

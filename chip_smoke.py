@@ -5,6 +5,8 @@
     python3 chip_smoke.py --kernels-only  # phases 1-3 and 8 only: build the
                                           # kernels and hold each against its
                                           # plain version (no contract lines)
+    python3 chip_smoke.py --data-parallel-only  # phases 1-3, 9, 12 and 14
+                                                # (no contract lines)
 
 The port's main paths are DeeplabMulti evaluation (ResNet-101 forward at
 512x1024 -> align-corners upsample to 1024x2048 -> first-index argmax ->
@@ -85,7 +87,29 @@ failure exits nonzero, and there is no CPU fallback):
  13. the other two segmenters: bf16 eval of DeeplabSingle (the Oracle) on a
      batch of two at 512x1024 (kernel 3 on its 65x129 maps, 30 launches),
      held against single-image eval; f32 DeeplabVGG card vs CPU at 256x512;
-     cli.evaluate --model Oracle and --model DeeplabVGG, then cli.iou.
+     cli.evaluate --model Oracle and --model DeeplabVGG, then cli.iou;
+ 14. data parallelism (parallel/group.py) on the one card: (a) the bf16
+     multi-level and source-only Warper steps at 512x1024 as the one rank
+     of an NCCL group (parallel.launch), one step each against the
+     no-group step from the same seeded state: bit for bit, but that
+     kernel 6's dx is not bit-reproducible, so the source-only update is
+     held to the bf16 limits of PERF.md §2; launches per step as phases 9
+     and 12, and ms/step (CUDA events) beside theirs; the train loop's
+     full-state resume through NCCL exact; (b) two gloo ranks,
+     both on cuda:0 (NCCL refuses two ranks on one card, so gloo is the
+     only way to run the multi-rank path here), each on its half of a
+     global batch of 2, against the 1-process step on that batch: the same
+     two steps at full width to the bf16 limits, and the f32 multi-level
+     step with bn_mode='batch' at phase 10's size and depth to the f32
+     limits; each rank's launches per step equal phases 9 / 12's; (c) two
+     gloo ranks: f32 Evaluator.run_streaming of 5 images at a global batch
+     of 2, histogram and PNGs equal to the 1-process run at batch 1, and
+     each rank's bf16 batched pair (kernels 3 and 1) bit for bit with the
+     1-process forward of that pair; (d) `python -m
+     adaptsegnet_tpu_torch.cli.profile_step --iters 3`: the table names the
+     hand-written kernels, the wrappers' launches over the trace are 3 x
+     phase 9's per step (the table in _smoke_out/profile_step.txt); (e)
+     entry() on the card. A failing rank fails the phase.
 Then a `{"kernels": [...]}` line, the nvidia-smi line, and the last line
 `{"ok": true, "device": {...}}`.
 
@@ -113,6 +137,7 @@ from PIL import Image
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(REPO, "_smoke_work")  # git-ignored scratch, removed at exit
+OUT = os.path.join(REPO, "_smoke_out")  # git-ignored, kept: output too long to print
 EVAL_IN, EVAL_OUT = (512, 1024), (1024, 2048)
 SEED = 0
 # Kernel-3 launches of one batched bf16 ResNet-101 forward: the stride-1 3x3
@@ -1325,6 +1350,7 @@ def phase_train(smi: str, results: dict, mode: str = "multi-level",
               f"steps, expected {per_step * steps}")
     if dtype == "bfloat16":
         results["path_launches"][f"train {mode}"] = counts
+    results.setdefault("train_ms", {})[f"{mode} {dtype}"] = ms
     moved = {k: (v.detach() - before[k]).abs().max().item() for k, v in watch.items()}
     check(all(m > 0 for m in moved.values()), f"parameters did not move: {moved}")
     warper_note = ""
@@ -1635,6 +1661,456 @@ def phase_model_families(smi: str, results: dict) -> None:
     phase_cli(oracle_cpu, 13, "Oracle")
     phase_cli(vgg_cpu, 13, "DeeplabVGG")
 
+# ------------------------------------------------------ data parallelism
+
+DP_TIMEOUT_S = 600  # each launch of ranks
+DP_STEPS = 5  # phase 14 (a): timed steps after 2 warm-up
+DP_EVAL_IMAGES = 5  # phase 14 (c): a ragged tail at a global batch of 2
+# What kernels 2, 4, 5 and 6 launch in the profiler CLI's multi-level step
+# (kernel 4's three kernels, the core's, kernel 5's wgrad; by CUDA name).
+PROFILE_KERNELS = ("conv_sm90_kernel", "wgrad_sm90_kernel", "fwd_kernel",
+                   "dgrad_kernel", "wgrad_kernel")
+
+
+def global_batch(hw, seed, n, device="cuda"):
+    """A seeded (iter_size 1, n) batch, as train_batch makes one of 1."""
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, 19, (1, n) + hw)
+    labels[rng.random((1, n) + hw) < 0.1] = 255
+    return {
+        "images": torch.from_numpy(make_images(n, hw, seed)[None]).to(device),
+        "target_images": torch.from_numpy(
+            make_images(n, hw, seed + 1)[None]).to(device),
+        "labels": torch.from_numpy(labels).to(device),
+    }
+
+
+def rank_slice(batch):
+    """This rank's interleaved part of a global batch."""
+    from adaptsegnet_tpu_torch.parallel import group
+
+    r, w = group.rank(), group.world()
+    return {k: v[:, r::w].contiguous() for k, v in batch.items()}
+
+
+def state_on_cpu(state) -> dict:
+    return {name: {k: v.detach().float().cpu().clone()
+                   for k, v in m.state_dict().items()}
+            for name, m in (("model", state.model), ("d1", state.d1),
+                            ("d2", state.d2), ("warper", state.warper))
+            if m is not None}
+
+
+def dp_state(dtype, hw, mode, cut: bool = False, **extra):
+    """The phase's seeded state and step; `cut`: phase 10's bn_mode='batch'
+    case (one bottleneck per stage, checkpoint-like BN statistics)."""
+    state, step = train_state(dtype, "cuda", hw, mode, PARITY_WARPER_LAYERS
+                              if hw == PARITY_IN else 8, **extra)
+    if cut:
+        cut_depth_(state, 1)
+        checkpoint_like_bn_(state.model, torch.Generator().manual_seed(SEED + 30))
+    return state, step
+
+
+def one_step(state, step, batch) -> dict:
+    """The step's metrics, launch counts and resulting state (on the CPU)."""
+    from adaptsegnet_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    metrics = {k: float(v) for k, v in step(state, batch).items()}
+    torch.cuda.synchronize()
+    return {"metrics": metrics, "counts": launch_counts(),
+            "state": state_on_cpu(state)}
+
+
+def flat_train_state(state) -> dict:
+    """Every tensor of a TrainState's state dict (optimizer states
+    included), on the CPU, by path; and the step."""
+    out = {}
+
+    def walk(prefix, v):
+        if isinstance(v, dict):
+            for k, x in v.items():
+                walk(f"{prefix}.{k}", x)
+        elif isinstance(v, (list, tuple)):
+            for i, x in enumerate(v):
+                walk(f"{prefix}.{i}", x)
+        elif isinstance(v, torch.Tensor):
+            out[prefix] = v.detach().cpu().clone()
+        elif prefix == ".step":
+            out[prefix] = v
+    walk("", state.state_dict())
+    return out
+
+
+def nccl_resume(state, mode: str) -> tuple[int, float]:
+    """The train loop's start over NCCL (train/loop.py::_resume_or_replicate):
+    `state` saved as a full-state checkpoint, then loaded into a freshly
+    built state through rank 0's byte broadcast. Checks that every tensor
+    (optimizer states included) and the step came through exactly; returns
+    the checkpoint's size in bytes and the seconds the start took."""
+    from adaptsegnet_tpu_torch.train.loop import _resume_or_replicate
+    from adaptsegnet_tpu_torch.utils.checkpoint import FullStateCheckpoints
+
+    full = FullStateCheckpoints(os.path.join(WORK, "nccl_resume"))
+    full.save(state.step, state)
+    size = os.path.getsize(full.path(state.step))
+    fresh, _ = dp_state("bfloat16", TRAIN_IN, mode)
+    t0 = time.perf_counter()
+    resumed = _resume_or_replicate(fresh, full, torch.device("cuda"))
+    took = time.perf_counter() - t0
+    want, got = flat_train_state(state), flat_train_state(fresh)
+    check(resumed and sorted(got) == sorted(want) and all(
+        torch.equal(got[k], v) if isinstance(v, torch.Tensor) else got[k] == v
+        for k, v in want.items()), f"(a) {mode}: the NCCL resume differs")
+    shutil.rmtree(full.directory)
+    return size, took
+
+
+def dp_nccl_rank(steps: int) -> dict:
+    """Phase 14 (a), as the one rank of an NCCL group: the bf16
+    multi-level and source-only + Warper steps at full width, each one step
+    from the seeded state (held against the no-group step), then ms/step
+    by CUDA events over `steps` steps after 2 warm-up, and a profiler
+    window (device busy per step); after the multi-level steps, the train
+    loop's full-state resume through NCCL (`nccl_resume`)."""
+    from adaptsegnet_tpu_torch.parallel import group
+
+    check(group.active() and dist_backend() == "nccl", "no NCCL group")
+    out = {}
+    for mode in ("multi-level", "source-only"):
+        state, step = dp_state("bfloat16", TRAIN_IN, mode)
+        batch = train_batch(TRAIN_IN, SEED + 50)
+        out[mode] = one_step(state, step, batch)
+        for _ in range(2):
+            step(state, batch)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(steps):
+            step(state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        out[mode]["ms"] = start.elapsed_time(end) / steps
+        out[mode]["profile"] = profile_eval(lambda: step(state, batch), iters=3)
+        if mode == "multi-level":
+            out[mode]["resume"] = nccl_resume(state, mode)
+        del state
+        torch.cuda.empty_cache()
+    return out
+
+
+def dist_backend() -> str:
+    import torch.distributed as dist
+
+    return dist.get_backend()
+
+
+def dp_gloo_rank() -> dict:
+    """Phase 14 (b), as one of two gloo ranks on card 0: this rank's half
+    of a global batch of 2 through the bf16 multi-level and source-only +
+    Warper steps at full width, and the f32 multi-level step with
+    bn_mode='batch' at phase 10's size and depth. Rank 0 returns the
+    states; both return metrics, launch counts and the host time of two
+    more steps."""
+    from adaptsegnet_tpu_torch.parallel import group
+
+    check(group.world() == 2 and dist_backend() == "gloo", "no gloo pair")
+    out = {}
+    for key, dtype, hw, mode, extra, seed in DP_GLOO_CASES:
+        state, step = dp_state(dtype, hw, mode, **extra)
+        batch = rank_slice(global_batch(hw, seed, 2))
+        res = one_step(state, step, batch)
+        if group.rank():
+            del res["state"]
+        t0 = time.perf_counter()
+        for _ in range(2):
+            step(state, batch)
+        torch.cuda.synchronize()
+        res["ms"] = (time.perf_counter() - t0) * 1e3 / 2
+        out[key] = res
+        del state
+        torch.cuda.empty_cache()
+    return out
+
+
+# (key, dtype, input, mode, state extras, batch seed); --batch-size is the
+# global batch, which must divide by the ranks
+DP_GLOO_CASES = (
+    ("multi-level bf16", "bfloat16", TRAIN_IN, "multi-level",
+     {"batch_size": 2}, SEED + 60),
+    ("source-only bf16", "bfloat16", TRAIN_IN, "source-only",
+     {"batch_size": 2}, SEED + 61),
+    ("multi-level f32 bn_mode batch", "float32", PARITY_IN, "multi-level",
+     {"batch_size": 2, "bn_mode": "batch", "cut": True}, SEED + 62),
+)
+
+
+def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    return ((a - b).norm() / b.norm().clamp(min=1e-30)).item()
+
+
+def compare_steps(got: dict, ref: dict, start: dict) -> dict:
+    """{name: relative L2 error} of each module's update (state after the
+    step minus `start`) against the reference's, and of the losses."""
+    errs = {"losses": max(abs(got["metrics"][k] - v) / max(abs(v), 1e-6)
+                          for k, v in ref["metrics"].items())}
+    for mod, sd in ref["state"].items():
+        keys = [k for k in sd if mod != "warper" or "running" in k]
+        d_got = torch.cat([(got["state"][mod][k] - start[mod][k]).flatten()
+                           for k in keys])
+        d_ref = torch.cat([(sd[k] - start[mod][k]).flatten() for k in keys])
+        errs[mod] = _rel_l2(d_got, d_ref)
+    return errs
+
+
+def dp_eval_rank(ckpt: str, root: str, list_path: str, labels: dict,
+                 out_dir: str, images: np.ndarray) -> dict:
+    """Phase 14 (c), as one of two gloo ranks on card 0: f32
+    Evaluator.run_streaming at a global batch of 2 (this rank's interleaved
+    images, its PNGs), then the bf16 batched forward of this rank's pair of
+    `images` (kernels 3 and 1)."""
+    import torch.distributed as dist
+
+    from adaptsegnet_tpu_torch.data import CityscapesDataset
+    from adaptsegnet_tpu_torch.eval.evaluator import Evaluator, make_eval_fn
+    from adaptsegnet_tpu_torch.models import DeeplabMulti
+    from adaptsegnet_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from adaptsegnet_tpu_torch.parallel import group
+    from adaptsegnet_tpu_torch.utils import pth_interop
+
+    check(group.world() == 2 and dist_backend() == "gloo", "no gloo pair")
+    sd = pth_interop.load_torch_state_dict(ckpt)
+    model = DeeplabMulti(device="cuda")
+    pth_interop.load_into(model, sd)
+    ds = CityscapesDataset(root, list_path, crop_size=EVAL_IN[::-1])
+    ev = Evaluator(model.eval(), out_hw=EVAL_OUT, save_dir=out_dir,
+                   mesh=dist.group.WORLD)
+    hist = ev.run_streaming(ds, lambda name: labels[name], batch_size=2,
+                            num_workers=2)
+    del model, ev
+    bf16 = DeeplabMulti(dtype=torch.bfloat16, device="cuda")
+    pth_interop.load_into(bf16, sd)
+    fn = make_eval_fn(bf16.eval(), out_hw=EVAL_OUT, dtype=torch.bfloat16)
+    r = group.rank()
+    pair = torch.from_numpy(images[2 * r:2 * r + 2]).cuda()
+    reset_launch_counts()
+    masks = fn(pair)
+    torch.cuda.synchronize()
+    return {"hist": hist, "masks": masks.cpu(), "counts": launch_counts()}
+
+
+def phase_data_parallel(smi: str, results: dict) -> None:
+    """Phase 14: data parallelism (parallel/group.py) on the one card."""
+    from adaptsegnet_tpu_torch.parallel import group
+
+    torch.cuda.empty_cache()
+    per_step = STEP_LAUNCHES
+
+    # (a) NCCL with one rank against the no-group step.
+    refs, starts = {}, {}
+    for mode in ("multi-level", "source-only"):
+        state, step = dp_state("bfloat16", TRAIN_IN, mode)
+        starts[mode] = state_on_cpu(state)
+        refs[mode] = one_step(state, step, train_batch(TRAIN_IN, SEED + 50))
+        del state
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    (nccl,) = group.launch(dp_nccl_rank, 1, args=(DP_STEPS,),
+                           timeout=DP_TIMEOUT_S)
+    launch_s = time.perf_counter() - t0
+    for mode, phase in (("multi-level", 9), ("source-only", 12)):
+        got, ref = nccl[mode], refs[mode]
+        check(got["counts"] == ref["counts"] and all(
+            got["counts"].get(k, 0) == v for k, v in per_step[mode].items()),
+            f"(a) {mode}: launches {got['counts']} vs no-group {ref['counts']}")
+        results["path_launches"][f"train {mode} DP NCCL 1 rank"] = got["counts"]
+        check(got["metrics"] == ref["metrics"],
+              f"(a) {mode}: losses {got['metrics']} vs {ref['metrics']}")
+        unequal = [f"{mod}.{k}" for mod, sd in ref["state"].items()
+                   for k, v in sd.items()
+                   if not torch.equal(got["state"][mod][k], v)]
+        if mode == "multi-level":
+            check(not unequal, f"(a) {mode}: not bit for bit: {unequal[:6]}")
+            note = "losses and every parameter, buffer and optimizer input bit for bit"
+        else:
+            errs = compare_steps(got, ref, starts[mode])
+            check(errs["losses"] == 0 and max(errs.values()) <= 2e-2 and not [
+                k for k in unequal if k.startswith("warper.")],
+                f"(a) {mode}: {errs}; unequal {unequal[:6]}")
+            note = (f"losses and the Warper bit for bit; {len(unequal)} "
+                    f"tensors differ (kernel 6's dx is not bit-reproducible): "
+                    f"relative L2 of the updates {json.dumps(errs)} (<= 2e-2)")
+        print(f"phase 14: (a) NCCL group of 1 rank, bf16 {mode} {TRAIN_IN} bs1 "
+              f"vs the no-group step: {note}; launches/step "
+              f"{ {k: v for k, v in got['counts'].items() if v} }; "
+              f"{got['ms']:.3f} ms/step (CUDA events, {DP_STEPS} steps after 2 "
+              f"warm-up) against phase {phase}'s "
+              f"{results['train_ms'][f'{mode} bfloat16']:.3f} ms/step; "
+              f"profile (compare phase {phase}'s device busy): "
+              f"{got['profile']} [{smi}]")
+    size, took = nccl["multi-level"]["resume"]
+    print(f"phase 14: (a) full-state resume through NCCL (rank 0's checkpoint "
+          f"file broadcast as bytes, {size} B): every tensor, optimizer "
+          f"states included, and the step exact; {took:.2f} s")
+    print(f"phase 14: (a) launch of 1 NCCL rank, both steps: {launch_s:.1f} s")
+
+    # (b) two gloo ranks sharing card 0 against the 1-process step.
+    refs, starts = {}, {}
+    for key, dtype, hw, mode, extra, seed in DP_GLOO_CASES:
+        state, step = dp_state(dtype, hw, mode, **extra)
+        starts[key] = state_on_cpu(state)
+        refs[key] = one_step(state, step, global_batch(hw, seed, 2))
+        del state
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = group.launch(dp_gloo_rank, 2, backend="gloo", devices=[0, 0],
+                         timeout=DP_TIMEOUT_S)
+    launch_s = time.perf_counter() - t0
+    for key, dtype, hw, mode, extra, seed in DP_GLOO_CASES:
+        r0, r1 = ranks[0][key], ranks[1][key]
+        check(r0["metrics"] == r1["metrics"],
+              f"(b) {key}: the ranks' losses differ")
+        errs = compare_steps(r0, refs[key], starts[key])
+        f32 = dtype == "float32"
+        loss_tol, tol = (1e-4, 1e-3) if f32 else (2e-2, 2e-2)
+        check(errs["losses"] <= loss_tol and max(
+            v for k, v in errs.items() if k != "losses") <= tol,
+            f"(b) {key}: relative errors {errs} (losses <= {loss_tol}, "
+            f"updates <= {tol})")
+        if not f32:
+            for r, res in enumerate((r0, r1)):
+                check(all(res["counts"].get(k, 0) == v
+                          for k, v in per_step[mode].items()) and sum(
+                    res["counts"].values()) == sum(per_step[mode].values()),
+                    f"(b) {key}: rank {r} launches {res['counts']}, expected "
+                    f"{per_step[mode]} (phases 9 / 12)")
+            results["path_launches"][f"train {mode} DP gloo 2 ranks"] = {
+                k: r0["counts"][k] + r1["counts"][k] for k in r0["counts"]}
+        print(f"phase 14: (b) gloo, 2 ranks both on cuda:0 (NCCL refuses two "
+              f"ranks on one card), {key} {hw}, global batch 2 vs the "
+              f"1-process step on it: relative errors {json.dumps(errs)} "
+              f"(losses <= {loss_tol}, updates <= {tol}); launches/step per "
+              f"rank {[{k: v for k, v in r['counts'].items() if v} for r in (r0, r1)]}; "
+              f"host ms/step {r0['ms']:.1f} / {r1['ms']:.1f} (not a "
+              f"data-parallel throughput: both ranks share the card and gloo "
+              f"goes through the host) [{smi}]")
+    print(f"phase 14: (b) launch of 2 gloo ranks, three steps: {launch_s:.1f} s")
+
+    # (c) data-parallel eval on two gloo ranks against one process.
+    from adaptsegnet_tpu_torch.data import CityscapesDataset, lists
+    from adaptsegnet_tpu_torch.eval.evaluator import Evaluator, make_eval_fn
+    from adaptsegnet_tpu_torch.models import DeeplabMulti
+    from adaptsegnet_tpu_torch.utils import pth_interop
+
+    root = os.path.join(WORK, "dp_eval")
+    list_path = lists.make_synthetic_cityscapes(
+        root, "val", n=DP_EVAL_IMAGES, size_wh=EVAL_IN[::-1], seed=SEED + 80)
+    g = torch.Generator().manual_seed(SEED + 81)
+    cpu = DeeplabMulti(device="cpu", generator=g)
+    checkpoint_like_bn_(cpu, g)
+    ckpt = os.path.join(root, "m.pth")
+    pth_interop.save_torch_state_dict(cpu.state_dict(), ckpt)
+    ds = CityscapesDataset(root, list_path, crop_size=EVAL_IN[::-1])
+    rng = np.random.default_rng(SEED + 82)
+    labels = {}
+    for i in range(DP_EVAL_IMAGES):
+        label = rng.integers(0, 19, EVAL_OUT).astype(np.uint8)
+        label[rng.random(EVAL_OUT) < 0.2] = 255
+        labels[ds[i][-1]] = label
+    images = make_images(4, EVAL_IN, SEED + 83)
+    model = DeeplabMulti(device="cuda")
+    model.load_state_dict(cpu.state_dict())
+    one_dir, two_dir = os.path.join(root, "one"), os.path.join(root, "two")
+    hist = Evaluator(model.eval(), out_hw=EVAL_OUT, save_dir=one_dir
+                     ).run_streaming(ds, lambda n: labels[n], batch_size=1)
+    bf16 = DeeplabMulti(dtype=torch.bfloat16, device="cuda")
+    bf16.load_state_dict(cpu.state_dict())
+    fn = make_eval_fn(bf16.eval(), out_hw=EVAL_OUT, dtype=torch.bfloat16)
+    pairs = [fn(torch.from_numpy(images[i:i + 2]).cuda()).cpu() for i in (0, 2)]
+    del model, bf16, cpu
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = group.launch(dp_eval_rank, 2, backend="gloo", devices=[0, 0],
+                         args=(ckpt, root, list_path, labels, two_dir, images),
+                         timeout=DP_TIMEOUT_S)
+    launch_s = time.perf_counter() - t0
+    for r, res in enumerate(ranks):
+        check(np.array_equal(res["hist"], hist),
+              f"(c) rank {r}: the histogram differs from the 1-process one")
+        check(torch.equal(res["masks"], pairs[r]),
+              f"(c) rank {r}: bf16 batched masks differ from the 1-process ones")
+        check(res["counts"].get("conv3x3_dil_batched_fwd") == BATCHED_EVAL_LAUNCHES
+              and res["counts"].get("upsample_argmax") == 1,
+              f"(c) rank {r}: launches {res['counts']}")
+    results["path_launches"]["eval bf16 batch of 2 DP gloo 2 ranks"] = {
+        k: ranks[0]["counts"][k] + ranks[1]["counts"][k] for k in ranks[0]["counts"]}
+    names = sorted(os.listdir(one_dir))
+    check(sorted(os.listdir(two_dir)) == names and len(names) == 2 * DP_EVAL_IMAGES,
+          f"(c) PNGs: {sorted(os.listdir(two_dir))} vs {names}")
+    for name in names:
+        check(np.array_equal(np.array(Image.open(os.path.join(two_dir, name))),
+                             np.array(Image.open(os.path.join(one_dir, name)))),
+              f"(c) {name} differs from the 1-process PNG")
+    print(f"phase 14: (c) gloo, 2 ranks on cuda:0: f32 Evaluator.run_streaming "
+          f"of {DP_EVAL_IMAGES} images {EVAL_IN} -> {EVAL_OUT} at a global "
+          f"batch of 2 (local 1, ragged tail): histogram ({int(hist.sum())} "
+          f"valid pixels, 20 % ignored) and all {len(names)} PNGs equal to the "
+          f"1-process run at batch 1; bf16 batched forward of each rank's pair "
+          f"(kernel 3 x{BATCHED_EVAL_LAUNCHES}, kernel 1 x1 per rank): masks "
+          f"equal to the 1-process forward of the same pairs; launch "
+          f"{launch_s:.1f} s")
+
+    # (d) the profiler CLI: the hand-written kernels by CUDA name, and the
+    # wrappers' launches over the traced steps.
+    iters = 3
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "adaptsegnet_tpu_torch.cli.profile_step",
+         "--iters", str(iters), "--top", "400",
+         "--trace-dir", os.path.join(WORK, "profile_step")],
+        cwd=REPO, capture_output=True, text=True, timeout=900)
+    check(proc.returncode == 0,
+          f"cli.profile_step exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    os.makedirs(OUT, exist_ok=True)
+    with open(os.path.join(OUT, "profile_step.txt"), "w") as f:
+        f.write(proc.stdout)
+    lines = proc.stdout.splitlines()
+    marker = f"kernel wrapper launches over the {iters} traced steps: "
+    counts = [json.loads(ln[len(marker):]) for ln in lines
+              if ln.startswith(marker)]
+    check(len(counts) == 1, "cli.profile_step printed no launch counts")
+    expected = {k: iters * v for k, v in per_step["multi-level"].items()}
+    check(counts[0] == expected,
+          f"(d) launches over the trace {counts[0]}, expected {expected}")
+    start = next(i for i, ln in enumerate(lines) if ln.startswith("op type"))
+    table = lines[start + 1:]
+    table = table[:table.index("")] if "" in table else table
+    types = {ln.split()[0] for ln in table if ln.strip()}
+    missing = [k for k in PROFILE_KERNELS if k not in types]
+    check(not missing, f"(d) kernels missing from the table: {missing}")
+    total = next(ln for ln in lines if ln.startswith("total self time"))
+    print(f"phase 14: (d) cli.profile_step --iters {iters} (bf16 multi-level "
+          f"{TRAIN_IN}): {total}; table names {list(PROFILE_KERNELS)}; wrapper "
+          f"launches over the trace {counts[0]} = {iters} x phase 9's per step; "
+          f"top rows: {' | '.join(' '.join(ln.split()[:4]) for ln in table[:6])} "
+          f"({time.perf_counter() - t0:.1f} s with process start-up; the "
+          f"whole table in _smoke_out/profile_step.txt) [{smi}]")
+
+    # (e) the entry point.
+    from adaptsegnet_tpu_torch.entry import entry
+
+    fn, (model, x) = entry()
+    p1, p2 = fn(model, x)
+    torch.cuda.synchronize()
+    check(all(tuple(p.shape) == (1, 32, 64, 19) and p.is_cuda
+              and bool(torch.isfinite(p).all()) for p in (p1, p2)),
+          f"entry(): {p1.shape} {p2.shape}")
+    print(f"phase 14: (e) entry() on {x.device}: DeeplabMulti {tuple(x.shape)} "
+          f"-> pred1, pred2 {tuple(p1.shape)}, finite")
+    del model
+    torch.cuda.empty_cache()
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1644,6 +2120,7 @@ def main() -> int:
     from adaptsegnet_tpu_torch.ops.kernels import LIBRARIES, _build
 
     quick = "--kernels-only" in sys.argv[1:]
+    dp_only = "--data-parallel-only" in sys.argv[1:]
     smi = nvidia_smi()
     print(f"phase 1: device {torch.cuda.get_device_name(0)} (count "
           f"{torch.cuda.device_count()}), torch {torch.__version__}, CUDA "
@@ -1667,6 +2144,11 @@ def main() -> int:
         if quick:
             phase_train_kernels(smi)
             return 0
+        if dp_only:
+            phase_train(smi, results, "multi-level")
+            phase_train(smi, results, "source-only")
+            phase_data_parallel(smi, results)
+            return 0
         cpu_model, models = build_models((torch.bfloat16, torch.float32))
         phase_bf16_eval(models[torch.bfloat16], results, smi)
         phase_f32_card_vs_cpu(cpu_model, models[torch.float32])
@@ -1683,6 +2165,7 @@ def main() -> int:
         phase_train(smi, results, "source-only")
         phase_train(smi, results, "source-only", dtype="float32", steps=3)
         phase_model_families(smi, results)
+        phase_data_parallel(smi, results)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 

@@ -74,10 +74,13 @@ def test_no_forbidden_import_in_source(path):
 
 def test_new_modules_are_covered():
     """The modules of the single-head and VGG families, the Synscapes source
-    and the logger are among those the import and source checks walk."""
+    and the logger, the data-parallel group, the profiler and its CLI and
+    the entry point are among those the import and source checks walk."""
     names = set(_module_names())
     for mod in ("models.deeplab_vgg", "data.synscapes", "utils.logging",
-                "ops.conv3x3", "ops.kernels.conv3x3_dil", "train.optim"):
+                "ops.conv3x3", "ops.kernels.conv3x3_dil", "train.optim",
+                "parallel", "parallel.group", "utils.profiling",
+                "cli.profile_step", "entry"):
         assert f"adaptsegnet_tpu_torch.{mod}" in names
 
 
@@ -91,7 +94,10 @@ def test_cli_modes_import_no_jax(tmp_path):
         "import argparse, torch",
         "from adaptsegnet_tpu_torch.cli import evaluate",
         "from adaptsegnet_tpu_torch.train.build import build_train_state",
-        "from adaptsegnet_tpu_torch.train.config import parse_args",
+        "from adaptsegnet_tpu_torch.train.config import parse_args, world_size",
+        "from adaptsegnet_tpu_torch import entry",
+        "from adaptsegnet_tpu_torch.cli import profile_step",
+        "from adaptsegnet_tpu_torch.utils import profiling",
         "from adaptsegnet_tpu_torch.data import SynscapesDataset",
         "from adaptsegnet_tpu_torch.utils.logging import ScalarLogger",
         "cpu = torch.device('cpu')",
@@ -103,6 +109,10 @@ def test_cli_modes_import_no_jax(tmp_path):
         "['--source', 'Synscapes', '--tensorboard']):",
         "    build_train_state(parse_args(['--no-warper', '--restore-from', "
         "'', *flags]), cpu)",
+        "cfg = parse_args(['--no-warper', '--restore-from', '', "
+        "'--num-devices', '2', '--batch-size', '2', '--cpu'])",
+        "assert world_size(cfg) == 2",
+        "build_train_state(cfg, cpu)",
         "ScalarLogger(None, False).close()",
         "leaked = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r} and sys.modules[m] is not None]",

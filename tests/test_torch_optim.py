@@ -133,10 +133,31 @@ def test_config_defaults_match_jax():
     ["--no-source-only", "--level", "multi-level", "--num-devices", "4"],
     ["--model", "DeeplabVGG", "--no-source-only", "--num-devices", "2"],
 ])
-def test_unported_flags_raise(argv):
-    """Only more than one device still raises."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        config.check_supported(config.parse_args(argv))
+def test_unported_flags_raise(argv, monkeypatch, caplog):
+    """--num-devices is ported: `check_supported` passes these argument
+    sets, and the world size they ask for is JAX's mesh size,
+    `auto_mesh_size`, with 1, 2, 4 or 8 devices (a simulated
+    `jax.devices()`) at global batches of 1 to 8, each warning about idle
+    devices exactly when JAX's does."""
+    from adaptsegnet_tpu.parallel import mesh as jax_mesh
+    from adaptsegnet_tpu_torch.parallel import group
+
+    config.check_supported(config.parse_args(argv))
+    for available in (1, 2, 4, 8):
+        monkeypatch.setattr(jax_mesh.jax, "devices",
+                            lambda n=available: [object()] * n)
+        for batch in (1, 2, 3, 4, 6, 8):
+            cfg = config.parse_args([*argv, "--batch-size", str(batch)])
+            caplog.clear()
+            ref = jax_mesh.auto_mesh_size(cfg.batch_size, cfg.num_devices)
+            ref_warned = len(caplog.records)
+            caplog.clear()
+            ours = group.auto_world_size(cfg.batch_size, cfg.num_devices,
+                                         available)
+            assert ours == ref, (argv, available, batch)
+            assert len(caplog.records) == ref_warned, (argv, available, batch)
+            if cfg.batch_size % ours == 0:
+                config.check_supported(cfg)
 
 
 def test_ported_modes_pass_the_check():
@@ -147,5 +168,13 @@ def test_ported_modes_pass_the_check():
                  ["--bn-mode", "batch"], ["--no-warper", "--optim-dup-quirk"],
                  ["--no-warper", "--source", "Synscapes"],
                  ["--model", "DeeplabVGG", "--no-source-only"],
-                 ["--no-warper", "--tensorboard"]):
+                 ["--no-warper", "--tensorboard"],
+                 # data parallelism (the world size comes from the launch)
+                 ["--num-devices", "4"], ["--no-warper", "--num-devices", "2"],
+                 ["--no-warper", "--num-devices", "8", "--bn-mode", "batch"],
+                 ["--no-warper", "--num-devices", "0", "--batch-size", "4"],
+                 ["--no-source-only", "--level", "multi-level",
+                  "--num-devices", "4", "--batch-size", "8"],
+                 ["--model", "DeeplabVGG", "--no-source-only",
+                  "--num-devices", "2", "--batch-size", "2"]):
         config.check_supported(config.parse_args(argv))
