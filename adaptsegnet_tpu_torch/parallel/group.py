@@ -32,7 +32,11 @@ from typing import Any, Callable, Iterable, Sequence
 import torch
 import torch.distributed as dist
 
-GROUP_TIMEOUT_S = 1800.0  # rendezvous and each collective
+# The rendezvous and each collective: a rank silent for this long (hung, or
+# waiting on a peer that is) fails the launch. The longest wait of a sound
+# run is under a minute: the first step of a checkout whose kernels are not
+# built yet, where every rank builds them at first use.
+GROUP_TIMEOUT_S = 600.0
 
 
 def auto_world_size(batch_size: int, num_devices: int, available: int) -> int:
@@ -228,10 +232,11 @@ def _worker(rank_, fn, args, world_size, cpu, backend, devices, store_dir):
     _join(rank_, world_size, cpu, backend,
           None if devices is None else devices[rank_],
           "file://" + os.path.join(store_dir, "store"))
-    try:
-        torch.save(fn(*args), os.path.join(store_dir, f"rank{rank_}.pt"))
-    finally:
-        dist.destroy_process_group()
+    # A rank that raises leaves its group to the process's exit, which
+    # aborts it: destroy_process_group could wait on collectives that its
+    # peers never join.
+    torch.save(fn(*args), os.path.join(store_dir, f"rank{rank_}.pt"))
+    dist.destroy_process_group()
 
 
 def launch(fn: Callable[..., Any], world_size: int, cpu: bool = False,
@@ -247,7 +252,9 @@ def launch(fn: Callable[..., Any], world_size: int, cpu: bool = False,
     which NCCL refuses). `fn` and `args` must pickle; results go back
     through files (map tensors to the CPU). A rank that raises or dies fails
     the launch and ends the others; so does `timeout` (seconds, None for
-    none). GROUP_TIMEOUT_S bounds the rendezvous and every collective.
+    none). GROUP_TIMEOUT_S bounds the rendezvous and every collective, so a
+    rank that hangs fails the launch once its peers have waited that long
+    in their next collective.
 
     In a process started by torchrun, the group is torchrun's: this process
     joins it (its rank's card is LOCAL_RANK) and runs `fn` itself;
@@ -261,12 +268,14 @@ def launch(fn: Callable[..., Any], world_size: int, cpu: bool = False,
         _join(int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"]), cpu,
               backend, local if devices is None else devices[local],
               "env://")
-        try:
-            return [fn(*args)]
-        finally:
-            dist.destroy_process_group()
+        result = fn(*args)  # on failure, as in _worker
+        dist.destroy_process_group()
+        return [result]
     if devices is not None and len(devices) != world_size:
         raise ValueError(f"{len(devices)} devices for {world_size} ranks")
+    if not cpu and devices is None and world_size > torch.cuda.device_count():
+        raise ValueError(f"{world_size} ranks need {world_size} CUDA cards, "
+                         f"{torch.cuda.device_count()} visible")
     store_dir = tempfile.mkdtemp(prefix="asn_group_")
     forwarded = {}
     try:

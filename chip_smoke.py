@@ -7,6 +7,9 @@
                                           # plain version (no contract lines)
     python3 chip_smoke.py --data-parallel-only  # phases 1-3, 9, 12 and 14
                                                 # (no contract lines)
+    python3 chip_smoke.py --multi-card    # phases 1, 2 and 15 on four cards
+                                          # (exits nonzero with fewer; no
+                                          # contract lines)
 
 The port's main paths are DeeplabMulti evaluation (ResNet-101 forward at
 512x1024 -> align-corners upsample to 1024x2048 -> first-index argmax ->
@@ -113,6 +116,34 @@ failure exits nonzero, and there is no CPU fallback):
 Then a `{"kernels": [...]}` line, the nvidia-smi line, and the last line
 `{"ok": true, "device": {...}}`.
 
+With --multi-card, after phases 1 and 2 (phase 1 prints nvidia-smi's line
+for each card), on four cards, one NCCL rank each (parallel.launch), each
+number beside the four cards' nvidia-smi lines:
+ 15. data parallelism across the cards: (a) the bf16 multi-level and
+     source-only Warper steps at 512x1024 and the f32 multi-level step
+     with bn_mode='batch' at phase 10's size and depth, on a global batch
+     of 4 (one image per card) from the seeded state, against one process
+     on card 0 with the whole batch (PERF.md §2's bf16 / f32 limits on the
+     losses, each module's gradient and its update; a discriminator's
+     update leaves out the weights whose Adam sign the summation order
+     picks, and counts them); every parameter, buffer and optimizer state
+     equal on all ranks after 3 steps; each rank's launches per step equal
+     phases 9 / 12's; ms/step by CUDA events per rank beside the one-card
+     step at batch 1 and 4, peak memory per card, rank 0's profiler
+     window (device busy, the NCCL kernels' device ms per step), and the
+     gradient all-reduce alone with the ranks aligned; (b) the
+     bf16 multi-level full state saved by rank 0 and resumed through NCCL
+     on every card, exact; (c) cli.train --num-devices 4 --batch-size 4, 3
+     steps, multi-level and the default mode flags, then cli.evaluate on
+     GTA5_3.pth; the multi-level command under `python -m
+     torch.distributed.run --standalone --nproc-per-node 4` (torchrun),
+     its snapshots and loss lines equal to the spawned run's bit for bit;
+     (d) cli.evaluate --num-devices 4 (f32) on 9 images against
+     --num-devices 1: PNGs and cli.iou exact; the group's run_streaming
+     histogram against one process; each rank's bf16 batched pair (kernels
+     3 and 1) bit for bit, and img/s on four cards beside one. A failing
+     rank fails the phase; there is no gloo fallback.
+
 Weights come from a fixed torch.Generator with the reference's init law
 (conv weights N(0, 0.01)); the frozen-BN statistics are then drawn from the
 same generator, checkpoint-like, because at init (scale 1, mean 0, var 1)
@@ -123,6 +154,7 @@ class. Images are made with numpy from a seed.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import os
 import shutil
@@ -151,12 +183,17 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
 
 
-def nvidia_smi(query: str = "name,power.limit") -> str:
+def nvidia_smi_cards(query: str = "name,power.limit") -> list[str]:
+    """nvidia-smi's line for each visible card."""
     return subprocess.run(
         ["nvidia-smi", f"--query-gpu={query}",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    ).stdout.strip().splitlines()
+
+
+def nvidia_smi(query: str = "name,power.limit") -> str:
+    return nvidia_smi_cards(query)[0]
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -175,10 +212,12 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def profile_eval(fn, iters: int = 5) -> str:
-    """Where one eval's time goes: torch.profiler over `iters` calls after
-    one warm-up -> wall and device-busy ms per call, kernel launches per
-    call, and the five kernels with the most device time."""
+def profile_window(fn, iters: int):
+    """torch.profiler over `iters` calls of fn after one warm-up -> (wall ms
+    per call, the device events, kernel launches per call). The device
+    events are kernels, device copies and the device spans of user
+    annotations (see busy_split); a CPU op's own entry, which repeats the
+    device time of the kernels it launched, is left out."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -191,14 +230,20 @@ def profile_eval(fn, iters: int = 5) -> str:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / iters
     events = prof.key_averages()
-    # Kernels (and device copies) only: a CPU op's own entry repeats the
-    # device time of the kernels it launched.
     device = [e for e in events if e.device_type == DeviceType.CUDA
               and e.device_time_total > 0]
-    busy_ms = sum(e.device_time_total for e in device) / 1e3 / iters
     launches = sum(e.count for e in events
                    if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
                                 "cudaLaunchKernelExC", "cuLaunchKernelEx")) / iters
+    return wall_ms, device, launches
+
+
+def profile_eval(fn, iters: int = 5) -> str:
+    """Where one eval's time goes: torch.profiler over `iters` calls after
+    one warm-up -> wall and device-busy ms per call, kernel launches per
+    call, and the five kernels with the most device time."""
+    wall_ms, device, launches = profile_window(fn, iters)
+    busy_ms = sum(e.device_time_total for e in device) / 1e3 / iters
     if not device:
         return (f"wall {wall_ms:.3f} ms/call; device time not measured (the "
                 "profiler saw no device events)")
@@ -1723,9 +1768,9 @@ def one_step(state, step, batch) -> dict:
             "state": state_on_cpu(state)}
 
 
-def flat_train_state(state) -> dict:
+def state_items(state) -> dict:
     """Every tensor of a TrainState's state dict (optimizer states
-    included), on the CPU, by path; and the step."""
+    included), where it lies, by path; and the step."""
     out = {}
 
     def walk(prefix, v):
@@ -1735,12 +1780,16 @@ def flat_train_state(state) -> dict:
         elif isinstance(v, (list, tuple)):
             for i, x in enumerate(v):
                 walk(f"{prefix}.{i}", x)
-        elif isinstance(v, torch.Tensor):
-            out[prefix] = v.detach().cpu().clone()
-        elif prefix == ".step":
+        elif isinstance(v, torch.Tensor) or prefix == ".step":
             out[prefix] = v
     walk("", state.state_dict())
     return out
+
+
+def flat_train_state(state) -> dict:
+    """state_items, the tensors copied to the CPU."""
+    return {k: v.detach().cpu().clone() if isinstance(v, torch.Tensor) else v
+            for k, v in state_items(state).items()}
 
 
 def nccl_resume(state, mode: str) -> tuple[int, float]:
@@ -2112,6 +2161,599 @@ def phase_data_parallel(smi: str, results: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------ four cards
+
+MC_CARDS = 4  # --multi-card: one NCCL rank per card
+MC_TIMEOUT_S = 300  # each launch of ranks and each CLI run in phase 15
+MC_STEPS = 5  # phase 15 (a): timed steps
+MC_PROFILE_ITERS = 3  # phase 15 (a): steps in rank 0's profiler window
+MC_EVAL_IMAGES = 9  # phase 15 (d): a ragged tail at a global batch of 4
+MC_EVAL_REPEATS = 10  # phase 15 (d): timed batched forwards per card
+# (key, dtype, input, mode, state extras, batch seed): phase 15 (a), each
+# on a global batch of MC_CARDS images, one per rank
+MC_CASES = (
+    ("multi-level bf16", "bfloat16", TRAIN_IN, "multi-level",
+     {"batch_size": MC_CARDS}, SEED + 90),
+    ("source-only bf16", "bfloat16", TRAIN_IN, "source-only",
+     {"batch_size": MC_CARDS}, SEED + 91),
+    ("multi-level f32 bn_mode batch", "float32", PARITY_IN, "multi-level",
+     {"batch_size": MC_CARDS, "bn_mode": "batch", "cut": True}, SEED + 92),
+)
+
+
+def launch_cards(fn, *args) -> list:
+    """fn(*args) on MC_CARDS NCCL ranks, rank r on card r; each rank's
+    result."""
+    from adaptsegnet_tpu_torch.parallel import group
+
+    return group.launch(fn, MC_CARDS, args=args, timeout=MC_TIMEOUT_S)
+
+
+def card_barrier() -> None:
+    """Every rank's work so far done, on its card and across the group."""
+    import torch.distributed as dist
+
+    t = torch.zeros(1, device="cuda")
+    dist.all_reduce(t)
+    torch.cuda.synchronize()
+
+
+def unequal_to_rank0(state) -> list[str]:
+    """The paths of the TrainState's tensors (parameters, buffers, optimizer
+    states) and step that differ from rank 0's: rank 0's are broadcast,
+    one collective per dtype, and compared bit for bit."""
+    import torch.distributed as dist
+
+    items = state_items(state)
+    step = torch.tensor([items.pop(".step")], device="cuda")
+    by_dtype: dict = {".step": [(".step", step)]}
+    for k, v in items.items():
+        by_dtype.setdefault(v.dtype, []).append((k, v.detach()))
+    bad = []
+    for ts in by_dtype.values():
+        flat = torch.cat([v.reshape(-1).cuda() for _, v in ts])
+        ref = flat.clone()
+        dist.broadcast(ref, src=0)
+        offset = 0
+        for k, v in ts:
+            if not torch.equal(flat[offset:offset + v.numel()],
+                               ref[offset:offset + v.numel()]):
+                bad.append(k)
+            offset += v.numel()
+    return bad
+
+
+def grads_on_cpu(state) -> dict:
+    """{module: {parameter: gradient}} of G, D1 and D2 after a step (the
+    group's sum in a rank), on the CPU in f32."""
+    return {name: {k: p.grad.detach().float().cpu().clone()
+                   for k, p in m.named_parameters() if p.grad is not None}
+            for name, m in (("model", state.model), ("d1", state.d1),
+                            ("d2", state.d2)) if m is not None}
+
+
+def mc_compare(got: dict, ref: dict, start: dict) -> tuple[dict, dict]:
+    """A rank's first step against the one-process step -> ({'losses': the
+    largest relative loss error, '<module> grad': relative L2 of the
+    module's gradient, '<module>': relative L2 of its update, the state
+    after the step minus `start` (the Warper: its running statistics)},
+    {discriminator: weights left out of its update}). A discriminator's
+    first Adam step moves a weight by lr g / (|g| + eps), about lr sign(g):
+    where the one-process gradient lies within the two gradients'
+    difference of zero, the summation order picks the sign and the weight
+    moves by +-lr, so that weight is left out of the update's error and
+    counted (its gradient is not left out)."""
+    errs = {"losses": max(abs(got["metrics"][k] - v) / max(abs(v), 1e-6)
+                          for k, v in ref["metrics"].items())}
+    unsettled = {}
+    for mod, sd in ref["state"].items():
+        g_got, g_ref = got["grads"].get(mod, {}), ref["grads"].get(mod, {})
+        if g_ref:
+            errs[f"{mod} grad"] = _rel_l2(
+                torch.cat([g_got[k].flatten() for k in g_ref]),
+                torch.cat([v.flatten() for v in g_ref.values()]))
+        d_got, d_ref, n = [], [], 0
+        for k, v in sd.items():
+            if mod == "warper" and "running" not in k:
+                continue
+            a, b = got["state"][mod][k] - start[mod][k], v - start[mod][k]
+            if mod in ("d1", "d2") and k in g_ref:
+                keep = g_ref[k].abs() > (g_got[k] - g_ref[k]).abs()
+                n += int((~keep).sum())
+                a, b = a[keep], b[keep]
+            d_got.append(a.flatten())
+            d_ref.append(b.flatten())
+        errs[mod] = _rel_l2(torch.cat(d_got), torch.cat(d_ref))
+        if mod in ("d1", "d2"):
+            unsettled[mod] = n
+    return errs, unsettled
+
+
+def mc_resume(state, mode: str) -> dict:
+    """Phase 15 (b), as one rank: rank 0 saves `state` as a full-state
+    checkpoint in a directory of its own, then every rank starts a freshly
+    built state through the train loop's resume (rank 0 reads the file and
+    broadcasts its bytes; the other ranks' directories stay empty) and
+    holds every tensor and the step against its own `state`."""
+    from adaptsegnet_tpu_torch.parallel import group
+    from adaptsegnet_tpu_torch.train.loop import _resume_or_replicate
+    from adaptsegnet_tpu_torch.utils.checkpoint import FullStateCheckpoints
+
+    r = group.rank()
+    full = FullStateCheckpoints(os.path.join(WORK, f"mc_resume_rank{r}"))
+    size = None
+    if r == 0:
+        full.save(state.step, state)
+        size = os.path.getsize(full.path(state.step))
+    fresh, _ = dp_state("bfloat16", TRAIN_IN, mode, batch_size=MC_CARDS)
+    card_barrier()
+    t0 = time.perf_counter()
+    resumed = _resume_or_replicate(fresh, full,
+                                   torch.device("cuda", torch.cuda.current_device()))
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t0
+    want, got = flat_train_state(state), flat_train_state(fresh)
+    differ = sorted(set(want) ^ set(got)) + [
+        k for k, v in want.items() if k in got and not (
+            torch.equal(got[k], v) if isinstance(v, torch.Tensor)
+            else got[k] == v)]
+    shutil.rmtree(full.directory)
+    return {"resumed": resumed, "differ": differ, "bytes": size, "s": took,
+            "step": fresh.step,
+            "device": str(fresh.model.layer6.conv2d_list[0].weight.device)}
+
+
+def mc_train_rank() -> dict:
+    """Phase 15 (a) and (b), as one of MC_CARDS NCCL ranks: each case of
+    MC_CASES from the seeded state on this rank's image of three global
+    batches; the first step's metrics, launches and (rank 0) state, and
+    after three steps the tensors that differ from rank 0's. The bf16 cases
+    then time MC_STEPS steps by CUDA events (launches and peak memory over
+    them), and rank 0 profiles MC_PROFILE_ITERS more; after the multi-level
+    steps, the resume across cards (`mc_resume`)."""
+    from adaptsegnet_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from adaptsegnet_tpu_torch.parallel import group
+
+    check(group.world() == MC_CARDS, f"{group.world()} ranks")
+    out = {"card": torch.cuda.current_device(), "backend": dist_backend()}
+    for key, dtype, hw, mode, extra, seed in MC_CASES:
+        state, step = dp_state(dtype, hw, mode, **extra)
+        batches = [rank_slice(global_batch(hw, seed + i, MC_CARDS))
+                   for i in range(3)]
+        res = one_step(state, step, batches[0])
+        if group.rank():
+            del res["state"]
+        else:
+            res["grads"] = grads_on_cpu(state)
+        for batch in batches[1:]:
+            step(state, batch)
+        res["unequal"] = unequal_to_rank0(state)
+        if dtype == "bfloat16":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            rotation = itertools.cycle(batches)
+            res["ms"] = cuda_ms(lambda: step(state, next(rotation)), MC_STEPS,
+                                warmup=0)
+            res["timed_counts"] = launch_counts()
+            res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            if group.rank() == 0:
+                wall, device, launches = profile_window(
+                    lambda: step(state, batches[0]), MC_PROFILE_ITERS)
+                res["profile"] = {"wall_ms": wall, "launches": launches,
+                                  **busy_split(device, MC_PROFILE_ITERS)}
+            else:  # the same steps as rank 0's window, which has a warm-up
+                for _ in range(1 + MC_PROFILE_ITERS):
+                    step(state, batches[0])
+                torch.cuda.synchronize()
+            # the step's gradient all-reduce alone, the ranks aligned first
+            modules = (state.model, state.d1, state.d2)
+            res["grad_bytes"] = 4 * sum(p.numel() for m in modules if m is not None
+                                        for p in m.parameters() if p.requires_grad)
+            card_barrier()
+            res["allreduce_ms"] = cuda_ms(lambda: group.all_reduce_grads(modules),
+                                          MC_STEPS, warmup=0)
+        if key == "multi-level bf16":
+            res["resume"] = mc_resume(state, mode)
+        out[key] = res
+        del state
+        torch.cuda.empty_cache()
+    return out
+
+
+def busy_split(device, iters: int) -> dict:
+    """Device ms per call from profile_window's device events: 'busy_ms' of
+    the kernels and copies, 'nccl_ms' of NCCL's kernels (a collective's
+    kernel runs from its launch until every rank has joined), and
+    'annotated_ms', busy with the device spans of user annotations
+    (nccl:all_reduce, Optimizer.step#...) added, which repeat the time of
+    the kernels under them; profile_eval counts those too."""
+    per = 1e3 * iters
+    kernels = [e for e in device if not (getattr(e, "is_user_annotation", False)
+                                         or e.key.startswith("nccl:"))]
+    nccl = [e for e in kernels if "nccl" in e.key.lower()]
+    return {"busy_ms": sum(e.device_time_total for e in kernels) / per,
+            "nccl_ms": sum(e.device_time_total for e in nccl) / per,
+            "nccl_kernels": sorted({e.key[:48] for e in nccl}),
+            "annotated_ms": sum(e.device_time_total for e in device) / per}
+
+
+def mc_one_card(dtype, hw, mode, extra, seed) -> dict:
+    """The reference of one MC_CASES case: one process on card 0 takes the
+    first step on the whole global batch; a bf16 case is then timed as
+    mc_train_rank times it, at the global batch and at its first image."""
+    state, step = dp_state(dtype, hw, mode, **extra)
+    start_state = state_on_cpu(state)
+    batch = global_batch(hw, seed, MC_CARDS)
+    ref = one_step(state, step, batch)
+    ref["start"], ref["grads"] = start_state, grads_on_cpu(state)
+    if dtype == "bfloat16":
+        for label, b in (("b4", batch),
+                         ("b1", {k: v[:, :1].contiguous() for k, v in batch.items()})):
+            torch.cuda.reset_peak_memory_stats()
+            ref[f"ms_{label}"] = cuda_ms(lambda: step(state, b), MC_STEPS,
+                                         warmup=2)
+            ref[f"peak_gib_{label}"] = torch.cuda.max_memory_allocated() / 2**30
+            if label == "b1":
+                _, device, _ = profile_window(lambda: step(state, b),
+                                              MC_PROFILE_ITERS)
+                ref["busy_b1"] = busy_split(device, MC_PROFILE_ITERS)
+    del state
+    torch.cuda.empty_cache()
+    return ref
+
+
+def mc_train(smi: str) -> None:
+    """Phase 15 (a) and (b): MC_CASES on MC_CARDS NCCL ranks against one
+    process on one card with the whole global batch."""
+    refs = {key: mc_one_card(*case) for key, *case in MC_CASES}
+    t0 = time.perf_counter()
+    ranks = launch_cards(mc_train_rank)
+    launch_s = time.perf_counter() - t0
+    check([r["card"] for r in ranks] == list(range(MC_CARDS))
+          and all(r["backend"] == "nccl" for r in ranks),
+          f"ranks on cards {[(r['card'], r['backend']) for r in ranks]}")
+    for key, dtype, hw, mode, extra, seed in MC_CASES:
+        rs, ref = [r[key] for r in ranks], refs[key]
+        check(all(r["metrics"] == rs[0]["metrics"] for r in rs),
+              f"(a) {key}: the ranks' losses differ")
+        errs, unsettled = mc_compare(rs[0], ref, ref["start"])
+        raw = {k: v for k, v in compare_steps(rs[0], ref, ref["start"]).items()
+               if k in unsettled}
+        f32 = dtype == "float32"
+        # PERF.md §2: f32 and bf16 limits; with bn_mode='batch' the f32
+        # generator gradient (ill-conditioned through the batch
+        # statistics) is held to 2e-2
+        tols = {k: 1e-4 if k == "losses" else 1e-3 for k in errs} if f32 else {
+            k: 2e-2 for k in errs}
+        if f32 and extra.get("bn_mode") == "batch":
+            tols["model grad"] = 2e-2
+        check(all(errs[k] <= tols[k] for k in errs),
+              f"(a) {key}: relative errors {errs} against one process, "
+              f"limits {tols}; weights left out of the D updates {unsettled}")
+        bad = {r: res["unequal"][:6] for r, res in enumerate(rs) if res["unequal"]}
+        check(not bad, f"(a) {key}: after 3 steps, tensors unequal to rank "
+              f"0's: {bad}")
+        line = (f"phase 15: (a) NCCL, {MC_CARDS} ranks on cards "
+                f"{[r['card'] for r in ranks]}, {key} {hw}, global batch "
+                f"{MC_CARDS} (one image per card) vs one process on card 0 "
+                f"with the whole batch: relative errors {json.dumps(errs)} "
+                f"(limits {json.dumps(tols)}; D "
+                f"weights whose sign the summation order picks, left out of "
+                f"the D updates: {json.dumps(unsettled)}; with them, not "
+                f"held: {json.dumps(raw)}); every parameter, "
+                f"buffer and optimizer state equal on all ranks after 3 steps")
+        if not f32:
+            per_step = STEP_LAUNCHES[mode]
+            for r, res in enumerate(rs):
+                for counts, n in ((res["counts"], 1), (res["timed_counts"], MC_STEPS)):
+                    check(all(counts.get(k, 0) == n * v for k, v in per_step.items())
+                          and sum(counts.values()) == n * sum(per_step.values()),
+                          f"(a) {key}: rank {r} launches {counts} in {n} "
+                          f"step(s), expected {per_step} per step (phases 9 / 12)")
+            prof, one = rs[0]["profile"], ref["busy_b1"]
+            line += (
+                f"; launches/step per rank {per_step} (phases 9 / 12's); "
+                f"ms/step (CUDA events, {MC_STEPS} steps after 3) per rank "
+                f"{[round(res['ms'], 3) for res in rs]} against one card's "
+                f"{ref['ms_b1']:.3f} at batch 1 and {ref['ms_b4']:.3f} at "
+                f"batch {MC_CARDS}; rank 0's profiler ({MC_PROFILE_ITERS} "
+                f"steps): wall {prof['wall_ms']:.3f} ms/step, device busy "
+                f"{prof['busy_ms']:.3f} ms/step ({100 * prof['busy_ms'] / prof['wall_ms']:.1f} "
+                f"%; with the annotations' spans {prof['annotated_ms']:.3f}) "
+                f"against one card's {one['busy_ms']:.3f} at batch 1 (with "
+                f"the spans {one['annotated_ms']:.3f}), NCCL kernels "
+                f"{prof['nccl_ms']:.3f} ms/step {prof['nccl_kernels']}, "
+                f"{prof['launches']:g} launches/step; the gradient "
+                f"all-reduce alone (ranks aligned, {MC_STEPS} calls) "
+                f"{[round(res['allreduce_ms'], 3) for res in rs]} ms for "
+                f"{rs[0]['grad_bytes']} B; peak memory per card "
+                f"{[round(res['peak_gib'], 3) for res in rs]} GiB against one "
+                f"card's {ref['peak_gib_b1']:.3f} at batch 1 and "
+                f"{ref['peak_gib_b4']:.3f} at batch {MC_CARDS}")
+        print(f"{line} [{smi}]")
+    res = [r["multi-level bf16"]["resume"] for r in ranks]
+    bad = {r: x["differ"][:6] for r, x in enumerate(res)
+           if not x["resumed"] or x["differ"]}
+    check(not bad, f"(b) the resume across cards differs: {bad}")
+    print(f"phase 15: (b) full-state resume across cards: rank 0's "
+          f"{res[0]['bytes']}-byte checkpoint (bf16 multi-level, step "
+          f"{res[0]['step']}) "
+          f"read by rank 0 alone and broadcast through NCCL into freshly "
+          f"built states on {[x['device'] for x in res]}: every tensor, "
+          f"optimizer states included, and the step exact on every rank; "
+          f"{max(x['s'] for x in res):.2f} s (slowest rank) [{smi}]")
+    print(f"phase 15: (a)+(b) launch of {MC_CARDS} NCCL ranks: {launch_s:.1f} s")
+
+
+def mc_train_cli(smi: str) -> None:
+    """Phase 15 (c): cli.train --num-devices MC_CARDS --batch-size
+    MC_CARDS, 3 steps, multi-level and the default mode flags, then
+    cli.evaluate on GTA5_3.pth; the multi-level command again under
+    torchrun, whose snapshots must equal the spawned run's bit for bit."""
+    from adaptsegnet_tpu_torch.data import lists
+    from adaptsegnet_tpu_torch.utils import pth_interop
+
+    root = os.path.join(WORK, "mc_train_cli")
+    size = f"{TRAIN_IN[1]},{TRAIN_IN[0]}"
+    gta = lists.make_synthetic_gta5(os.path.join(root, "gta5"), n=MC_CARDS,
+                                    size_wh=TRAIN_IN[::-1])
+    cs = lists.make_synthetic_cityscapes(os.path.join(root, "cs"), "train",
+                                         n=MC_CARDS, size_wh=TRAIN_IN[::-1])
+    val = lists.make_synthetic_cityscapes(os.path.join(root, "cs"), "val", n=2,
+                                          size_wh=TRAIN_IN[::-1])
+    gta_flags = ["--data-dir", os.path.dirname(gta), "--data-list", gta]
+    multi = ["--no-warper", "--no-source-only", "--level", "multi-level",
+             "--data-dir-target", os.path.dirname(cs), "--data-list-target",
+             cs, "--input-size-target", size, *gta_flags]
+    common = ["--compute-dtype", "bfloat16", "--input-size", size,
+              "--num-steps", "100", "--num-steps-stop", "3", "--restore-from",
+              "", "--num-workers", "2", "--num-devices", str(MC_CARDS),
+              "--batch-size", str(MC_CARDS)]
+    train = ["-m", "adaptsegnet_tpu_torch.cli.train"]
+    torchrun = ["-m", "torch.distributed.run", "--standalone",
+                "--nproc-per-node", str(MC_CARDS), *train]
+    runs = (("multi_level", "multi_level", train, multi),
+            ("source_only", "source_only", train, gta_flags),
+            ("multi_level torchrun", "multi_level", torchrun, multi))
+    loss_lines = {}
+    for label, sub, launcher, flags in runs:
+        snap = os.path.join(root, "snap_" + label.replace(" ", "_"))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, *launcher, *flags, *common, "--snapshot-dir", snap],
+            cwd=REPO, capture_output=True, text=True, timeout=MC_TIMEOUT_S)
+        check(proc.returncode == 0, f"(c) cli.train {label} exited "
+              f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+        lines = [ln[ln.index("iter ="):] for ln in proc.stdout.splitlines()
+                 if "iter =" in ln]
+        check(len(lines) == 3 and all("nan" not in ln and "inf" not in ln
+                                      for ln in lines),
+              f"(c) cli.train {label}: loss lines {lines} (rank 0 alone prints)")
+        loss_lines[label] = lines
+        files = sorted(os.listdir(os.path.join(snap, sub)))
+        want = sorted(["GTA5_3.pth", "full_state"] + (
+            ["GTA5_3_D1.pth", "GTA5_3_D2.pth"] if sub == "multi_level" else []))
+        check(files == want, f"(c) cli.train {label} wrote {files}, expected {want}")
+        took = time.perf_counter() - t0
+        note = ""
+        if launcher is train:
+            result = os.path.join(root, "result_" + label)
+            proc = subprocess.run(
+                [sys.executable, "-m", "adaptsegnet_tpu_torch.cli.evaluate",
+                 "--data-dir", os.path.dirname(val), "--data-list", val,
+                 "--restore-from", os.path.join(snap, sub, "GTA5_3.pth"),
+                 "--save", result],
+                cwd=REPO, capture_output=True, text=True, timeout=MC_TIMEOUT_S)
+            check(proc.returncode == 0, f"(c) cli.evaluate exited "
+                  f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+            pngs = os.listdir(result)
+            check(len(pngs) == 4, f"(c) cli.evaluate wrote {pngs}")
+            note = f"; cli.evaluate on GTA5_3.pth -> {len(pngs)} PNGs"
+        else:
+            spawned = os.path.join(root, "snap_multi_level", sub)
+            for f in files:
+                if not f.endswith(".pth"):
+                    continue
+                a = pth_interop.load_torch_state_dict(os.path.join(snap, sub, f))
+                b = pth_interop.load_torch_state_dict(os.path.join(spawned, f))
+                check(sorted(a) == sorted(b) and all(
+                    torch.equal(torch.as_tensor(a[k]), torch.as_tensor(b[k]))
+                    for k in a), f"(c) torchrun's {f} differs from the spawned run's")
+            check(lines == loss_lines["multi_level"],
+                  f"(c) torchrun's loss lines {lines} differ from the spawned "
+                  f"run's {loss_lines['multi_level']}")
+            note = ("; GTA5_3.pth, _D1 and _D2 equal to the spawned run's "
+                    "bit for bit, and the loss lines too")
+        print(f"phase 15: (c) cli.train bf16 {label} --num-devices {MC_CARDS} "
+              f"--batch-size {MC_CARDS} 3 steps {TRAIN_IN} -> {files} (rank 0 "
+              f"alone writes and prints); last loss line: {lines[-1]}{note} "
+              f"({took:.1f} s with process start-up) [{smi}]")
+
+
+def mc_eval_rank(ckpt: str, root: str, list_path: str, labels: dict,
+                 images: np.ndarray) -> dict:
+    """Phase 15 (d), as one of MC_CARDS NCCL ranks: f32
+    Evaluator.run_streaming at a global batch of MC_CARDS, then the bf16
+    batched forward of this rank's pair of `images` (kernels 3 and 1),
+    counted once and then timed MC_EVAL_REPEATS times between barriers."""
+    import torch.distributed as dist
+
+    from adaptsegnet_tpu_torch.data import CityscapesDataset
+    from adaptsegnet_tpu_torch.eval.evaluator import Evaluator, make_eval_fn
+    from adaptsegnet_tpu_torch.models import DeeplabMulti
+    from adaptsegnet_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from adaptsegnet_tpu_torch.parallel import group
+    from adaptsegnet_tpu_torch.utils import pth_interop
+
+    sd = pth_interop.load_torch_state_dict(ckpt)
+    model = DeeplabMulti(device="cuda")
+    pth_interop.load_into(model, sd)
+    ds = CityscapesDataset(root, list_path, crop_size=EVAL_IN[::-1])
+    hist = Evaluator(model.eval(), out_hw=EVAL_OUT, mesh=dist.group.WORLD
+                     ).run_streaming(ds, lambda name: labels[name],
+                                     batch_size=MC_CARDS, num_workers=2)
+    del model
+    bf16 = DeeplabMulti(dtype=torch.bfloat16, device="cuda")
+    pth_interop.load_into(bf16, sd)
+    fn = make_eval_fn(bf16.eval(), out_hw=EVAL_OUT, dtype=torch.bfloat16)
+    r = group.rank()
+    pair = torch.from_numpy(images[2 * r:2 * r + 2]).cuda()
+    reset_launch_counts()
+    masks = fn(pair)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    card_barrier()
+    t0 = time.perf_counter()
+    for _ in range(MC_EVAL_REPEATS):
+        fn(pair)
+    card_barrier()
+    return {"hist": hist, "masks": masks.cpu(), "counts": counts,
+            "s": time.perf_counter() - t0, "card": torch.cuda.current_device()}
+
+
+def mc_eval_data():
+    """Phase 15 (d)'s synthetic Cityscapes val set of MC_EVAL_IMAGES images
+    with gtFine labels and a devkit, and a checkpoint of DeeplabMulti with
+    checkpoint-like BN statistics -> (root, list file, gt dir, devkit,
+    checkpoint, the CPU model)."""
+    from adaptsegnet_tpu_torch.data import lists
+    from adaptsegnet_tpu_torch.models import DeeplabMulti
+    from adaptsegnet_tpu_torch.utils import pth_interop
+
+    root = os.path.join(WORK, "mc_eval")
+    list_path = lists.make_synthetic_cityscapes(
+        root, "val", n=MC_EVAL_IMAGES, size_wh=EVAL_IN[::-1], seed=SEED + 100)
+    with open(list_path) as f:
+        names = f.read().split()
+    gt_dir, gt_names = lists.make_synthetic_cityscapes_gt(
+        root, names, size_wh=EVAL_OUT[::-1], seed=SEED + 101)
+    devkit = os.path.join(root, "devkit")
+    lists.write_devkit(devkit, names, gt_names)
+    g = torch.Generator().manual_seed(SEED + 102)
+    cpu = DeeplabMulti(device="cpu", generator=g)
+    checkpoint_like_bn_(cpu, g)
+    ckpt = os.path.join(root, "m.pth")
+    pth_interop.save_torch_state_dict(cpu.state_dict(), ckpt)
+    return root, list_path, gt_dir, devkit, ckpt, cpu
+
+
+def mc_eval_cli(data, smi: str) -> None:
+    """Phase 15 (d): cli.evaluate --num-devices MC_CARDS (f32) against
+    --num-devices 1 on the MC_EVAL_IMAGES images: PNGs and cli.iou exact."""
+    root, list_path, gt_dir, devkit, ckpt, _ = data
+    iou, secs = {}, {}
+    for n in (1, MC_CARDS):
+        pred = os.path.join(root, f"pred{n}")
+        t0 = time.perf_counter()
+        for cmd in (
+            ["-m", "adaptsegnet_tpu_torch.cli.evaluate", "--data-dir", root,
+             "--data-list", list_path, "--restore-from", ckpt, "--save", pred,
+             "--num-devices", str(n), "--batch-size", str(n)],
+            ["-m", "adaptsegnet_tpu_torch.cli.iou", "--gt_dir", gt_dir,
+             "--pred_dir", pred, "--devkit_dir", devkit, "--single-dir"],
+        ):
+            proc = subprocess.run([sys.executable, *cmd], cwd=REPO,
+                                  capture_output=True, text=True,
+                                  timeout=MC_TIMEOUT_S)
+            check(proc.returncode == 0, f"(d) {cmd[1]} --num-devices {n} "
+                  f"exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+            if cmd[1].endswith("evaluate"):
+                secs[n] = time.perf_counter() - t0
+        iou[n] = [ln for ln in proc.stdout.splitlines() if ln.startswith("===>")]
+    check(len(iou[1]) == 20 and iou[MC_CARDS] == iou[1],
+          f"(d) cli.iou: {iou[MC_CARDS][-1:]} vs {iou[1][-1:]}")
+    one, many = (os.path.join(root, f"pred{n}") for n in (1, MC_CARDS))
+    pngs = sorted(os.listdir(one))
+    check(sorted(os.listdir(many)) == pngs and len(pngs) == 2 * MC_EVAL_IMAGES,
+          f"(d) PNGs: {sorted(os.listdir(many))} vs {pngs}")
+    for name in pngs:
+        check(np.array_equal(np.array(Image.open(os.path.join(many, name))),
+                             np.array(Image.open(os.path.join(one, name)))),
+              f"(d) {name} differs from the one-process PNG")
+    print(f"phase 15: (d) cli.evaluate f32 --num-devices {MC_CARDS} "
+          f"--batch-size {MC_CARDS} on {MC_EVAL_IMAGES} images {EVAL_IN} -> "
+          f"{EVAL_OUT} (ragged tail): all {len(pngs)} PNGs and cli.iou's "
+          f"lines ({iou[1][-1]}) equal to --num-devices 1 "
+          f"({secs[MC_CARDS]:.1f} s against {secs[1]:.1f} s with process "
+          f"start-up) [{smi}]")
+
+
+def mc_eval_group(data, smi: str) -> None:
+    """Phase 15 (d): the group's f32 run_streaming histogram against one
+    process; each rank's bf16 batched pair bit for bit with the one-process
+    forward, and img/s on MC_CARDS cards beside one."""
+    from adaptsegnet_tpu_torch.data import CityscapesDataset
+    from adaptsegnet_tpu_torch.eval.evaluator import Evaluator, make_eval_fn
+    from adaptsegnet_tpu_torch.models import DeeplabMulti
+
+    root, list_path, _, _, ckpt, cpu = data
+    ds = CityscapesDataset(root, list_path, crop_size=EVAL_IN[::-1])
+    rng = np.random.default_rng(SEED + 103)
+    labels = {}
+    for i in range(MC_EVAL_IMAGES):
+        label = rng.integers(0, 19, EVAL_OUT).astype(np.uint8)
+        label[rng.random(EVAL_OUT) < 0.2] = 255
+        labels[ds[i][-1]] = label
+    images = make_images(2 * MC_CARDS, EVAL_IN, SEED + 104)
+    model = DeeplabMulti(device="cuda")
+    model.load_state_dict(cpu.state_dict())
+    hist = Evaluator(model.eval(), out_hw=EVAL_OUT).run_streaming(
+        ds, lambda n: labels[n], batch_size=1)
+    del model
+    bf16 = DeeplabMulti(dtype=torch.bfloat16, device="cuda")
+    bf16.load_state_dict(cpu.state_dict())
+    fn = make_eval_fn(bf16.eval(), out_hw=EVAL_OUT, dtype=torch.bfloat16)
+    pairs = [torch.from_numpy(images[i:i + 2]).cuda()
+             for i in range(0, 2 * MC_CARDS, 2)]
+    masks = [fn(p).cpu() for p in pairs]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(MC_EVAL_REPEATS):
+        fn(pairs[0])
+    torch.cuda.synchronize()
+    one_card = 2 * MC_EVAL_REPEATS / (time.perf_counter() - t0)
+    del bf16, cpu, pairs
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ranks = launch_cards(mc_eval_rank, ckpt, root, list_path, labels, images)
+    launch_s = time.perf_counter() - t0
+    for r, res in enumerate(ranks):
+        check(res["card"] == r, f"(d) rank {r} on card {res['card']}")
+        check(np.array_equal(res["hist"], hist),
+              f"(d) rank {r}: the histogram differs from the one-process one")
+        check(torch.equal(res["masks"], masks[r]),
+              f"(d) rank {r}: bf16 batched masks differ from the one-process ones")
+        check(res["counts"].get("conv3x3_dil_batched_fwd") == BATCHED_EVAL_LAUNCHES
+              and res["counts"].get("upsample_argmax") == 1
+              and sum(res["counts"].values()) == BATCHED_EVAL_LAUNCHES + 1,
+              f"(d) rank {r}: launches {res['counts']}")
+    cards = 2 * MC_CARDS * MC_EVAL_REPEATS / max(res["s"] for res in ranks)
+    print(f"phase 15: (d) the group's f32 Evaluator.run_streaming at a "
+          f"global batch of {MC_CARDS} over the {MC_EVAL_IMAGES} images: the "
+          f"histogram ({int(hist.sum())} valid pixels, 20 % ignored) equal to "
+          f"one process's at batch 1 on every rank")
+    print(f"phase 15: (d) bf16 batched forward, 2 images per card (kernel 3 "
+          f"x{BATCHED_EVAL_LAUNCHES}, kernel 1 x1 per rank): each rank's masks "
+          f"equal to the one-process forward of its pair; {cards:.2f} img/s on "
+          f"{MC_CARDS} cards against {one_card:.2f} img/s on one "
+          f"({MC_EVAL_REPEATS} forwards per card after one, host clock between "
+          f"synchronised barriers); launch {launch_s:.1f} s [{smi}]")
+
+
+def phase_multi_card(cards: list[str]) -> None:
+    """Phase 15: data-parallel train and eval across MC_CARDS cards."""
+    smi = " | ".join(cards)
+    t0 = time.perf_counter()
+    mc_train(smi)
+    mc_train_cli(smi)
+    data = mc_eval_data()
+    mc_eval_cli(data, smi)
+    mc_eval_group(data, smi)
+    print(f"phase 15: passed in {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2121,11 +2763,17 @@ def main() -> int:
 
     quick = "--kernels-only" in sys.argv[1:]
     dp_only = "--data-parallel-only" in sys.argv[1:]
-    smi = nvidia_smi()
+    multi = "--multi-card" in sys.argv[1:]
+    if multi and torch.cuda.device_count() < MC_CARDS:
+        print(f"chip_smoke --multi-card: needs {MC_CARDS} CUDA cards, "
+              f"{torch.cuda.device_count()} visible", file=sys.stderr)
+        return 1
+    cards = nvidia_smi_cards()
+    smi = cards[0]
     print(f"phase 1: device {torch.cuda.get_device_name(0)} (count "
           f"{torch.cuda.device_count()}), torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, python {sys.version.split()[0]}; "
-          f"nvidia-smi: {smi}")
+          f"nvidia-smi: {' | '.join(cards) if multi else smi}")
 
     t0 = time.perf_counter()
     logs = _build.build(list(LIBRARIES))
@@ -2140,6 +2788,9 @@ def main() -> int:
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
     try:
+        if multi:
+            phase_multi_card(cards)
+            return 0
         phase_kernels(results, smi)
         if quick:
             phase_train_kernels(smi)
