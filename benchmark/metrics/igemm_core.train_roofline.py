@@ -1,0 +1,6 @@
+"""igemm_core.train_roofline: the igemm_core family's least time over its device time
+(layer: kernels; moves train_img_s)."""
+
+from benchmark.lib.readers import roofline
+
+read = roofline("igemm_core")
